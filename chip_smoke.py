@@ -11,19 +11,30 @@ Exits non-zero, printing no result, when there is no card. Phases:
    ``egotap_tpu_torch/csrc`` (one ``nvcc`` per source, all at once).
 2. Kernel vs plain version on the card, at the serving forward's shapes,
    in f32 and bf16: max and rms error relative to the plain output,
-   each within the kernel module's ``TOL``; in bf16, faulty variants of
-   the plain version (a bf16 rounding skipped or added, a term dropped)
-   must fall outside those limits; median CUDA-event times of the
-   kernel, its plain version and a one-call PyTorch yardstick where one
-   exists (never used by the port).
+   each within the kernel module's ``TOL``; faulty variants of the plain
+   version (a bf16 rounding skipped or added, a term dropped, one int8
+   scale for the whole batch) must fall outside those limits; median
+   CUDA-event times of the kernel, its plain version and a one-call
+   PyTorch yardstick where one exists (never used by the port). Kernels:
+   A upsample, B packed attention and B on the unpacked layout, C PU
+   chain, D fused int8 layer1 (also timed against the unfused int8
+   layer1 it replaces).
 3. Full path: a full-width `Predictor` (UnrealEgo, resnet18, Grid-ViT
    width 1024 x 3 layers, PU hidden 512) with seeded random weights
-   serves 3 requests of (32, 2, 256, 256, 3) in bf16 and in f32; the
-   launch counters must rise by exactly 6 (upsample), 3 (attention) and
-   1 (PU chain) per forward; one batch-2 f32 request is cross-checked
-   against the same port on the CPU, and the bf16 poses against the
-   f32 ones.
-4. One JSON line with every kernel's numbers, then the result line.
+   serves 3 requests of (32, 2, 256, 256, 3) in bf16, in f32 and in the
+   int8 serving configuration (bf16 compute, int8 heatmap nets and
+   lifter, static scales calibrated on 2 batches of rgb + 0.1 noise);
+   the launch counters must rise by exactly 6 (upsample), 3 (attention)
+   and 1 (PU chain) per forward; batch-2 f32 requests are cross-checked
+   against the same port on the CPU (the int8 one under the card's
+   static scales, free-running and with the card's int8 codes held
+   against the CPU's and replaced by them, `CodeTape`), the bf16 poses
+   against the f32 ones and the int8 poses against the bf16 ones.
+4. Entry points off the Predictor's path: the int8 ResNet encoder with
+   the fused layer1 (kernel D once per forward) on (64, 256, 256, 3)
+   bf16 against the unfused int8 encoder, and one call of the unpacked
+   attention wrapper at the Grid-ViT's (32, 8, 576, 128) in bf16.
+5. One JSON line with every kernel's numbers, then the result line.
 """
 
 import json
@@ -34,9 +45,33 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_TENSOR_FLOPS = 989e12         # dense bf16 tensor-core peak
+INT8_TENSOR_OPS = 1979e12          # dense int8 tensor-core peak
 F32_FLOPS = 67e12                  # f32 outside the tensor cores
 ITERS = 20
 BF16_POSE_TOL = 5e-2               # bf16 vs f32 pose, relative to max|f32|
+# int8 (static scales) vs bf16 pose of the same weights, relative to
+# max|bf16|: int8 rounds every activation and weight of both stages to
+# 1/127 of its scale, and a flipped code cascades through the lifter (on
+# the CPU a 1e-7 change of the input moves the int8 lifter's pose by
+# 2.5% of its max, tests/test_torch_quant.py). An H100 read 2.9e-2; the
+# limit is about 3 times that
+INT8_POSE_TOL = 1e-1
+# the int8 f32 forward on the card vs on the CPU under the same static
+# scales, relative to max|cpu|: the f32 float paths differ in summation
+# order (1e-7), which flips a few int8 codes, cascading as above. An
+# H100 read 2.5e-2; the limit is 4 times that
+INT8_CPU_TOL = 1e-1
+# the same two forwards with the card's int8 codes held against the
+# CPU's and replaced by them (`CodeTape`), so that flips cannot cascade:
+# at most FLIP_RATE of one call's codes one step off, and the heatmap
+# stacks and poses within FORCED_TOL of their max. An H100 read 52 of
+# 128M codes off (4e-7), the heatmap stacks equal and the pose 5.5e-7
+# of its max: what is left is f32 summation order. FORCED_TOL is about
+# 20 times that reading; FLIP_RATE leaves room for a small call's share
+FLIP_RATE, FORCED_TOL = 1e-2, 1e-5
+# fused vs unfused int8 encoder, rel-L2 per layer: the JAX package's own
+# bound (tests/test_fused_layer1.py:132)
+FUSED_ENCODER_TOL = 0.06
 
 
 def time_ms(torch, fn, iters=ITERS, warmup=3):
@@ -84,9 +119,20 @@ def control(name, faulty, ref, tol, failures):
 
 
 def phase_kernels(torch, F, card):
-    from egotap_tpu_torch.ops import attention, pu_kernel, upsample
+    from egotap_tpu_torch.models.layers import BN_EPS
+    from egotap_tpu_torch.models.resnet import BasicBlock
+    from egotap_tpu_torch.ops import (attention, fused_layer1, pu_kernel,
+                                      upsample)
     from egotap_tpu_torch.ops.attention import (attention_packed_plain,
+                                                multihead_attention,
                                                 multihead_attention_packed)
+    from egotap_tpu_torch.ops.fused_layer1 import (fused_layer1_int8,
+                                                   fused_layer1_plain,
+                                                   pack_blocks)
+    from egotap_tpu_torch.ops.quant import (Calibrated, install_scales,
+                                            prequantize, quantized_conv,
+                                            set_calibrating)
+    from egotap_tpu_torch.serving import init_weights
     from egotap_tpu_torch.ops.pu_kernel import pu_chain_fused, pu_chain_plain
     from egotap_tpu_torch.ops.upsample import (upsample2x_align_corners,
                                                upsample2x_plain)
@@ -199,23 +245,213 @@ def phase_kernels(torch, F, card):
             ms=ms, plain_ms=pms, library_ms=None, bound_ms=bound,
             max_abs_err=err,
             bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+    # ---- B on the unpacked (B, H, S, Dh) layout (`multihead_attention`)
+    b, heads, s, hd = 32, 8, 576, 128
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(b, heads, s, hd, generator=g,
+                               device=dev).to(dt) for _ in range(3))
+
+        def plain_unpacked(q, k, v):
+            flat = [x.reshape(b * heads, s, hd) for x in (q, k, v)]
+            return attention_packed_plain(*flat, heads=1).reshape(q.shape)
+        ref = plain_unpacked(q, k, v)
+        err = check(f"attention unpacked {dt} {(b, heads, s, hd)}",
+                    multihead_attention(q, k, v), ref, attention.TOL[dt],
+                    failures)
+        if dt == torch.bfloat16:
+            control("p left in f32 (not rounded to bf16 before p v)",
+                    plain_unpacked(q.float(), k.float(), v.float()).to(dt),
+                    ref, attention.TOL[dt], failures)
+        ms = time_ms(torch, lambda: multihead_attention(q, k, v))
+        pms = time_ms(torch, lambda: plain_unpacked(q, k, v))
+        lms = time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v))
+        flops = 4 * b * heads * s * s * hd
+        nbytes = 4 * q.numel() * q.element_size()
+        peak = BF16_TENSOR_FLOPS if dt == torch.bfloat16 else F32_FLOPS
+        t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+        bound = 1e3 * max(t_ops, t_bytes)
+        print(f"    kernel {ms:.4f} ms, plain {pms:.4f} ms, SDPA {lms:.4f} ms, "
+              f"bound {bound:.4f} ms [{card}]")
+        rows[("attention_unpacked", dt)] = dict(
+            ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bound,
+            max_abs_err=err,
+            bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+    # ---- D: fused int8 layer1 at one net's shape (batch 32 x 2 views);
+    # image i scaled by 1 + i/8, so that the per-image scales differ
+    blocks = torch.nn.Sequential(BasicBlock(64, 64, quant=True),
+                                 BasicBlock(64, 64, quant=True))
+    init_weights(blocks, torch.Generator().manual_seed(2))
+    blocks.to(dev).eval()
+    wq, ws, bias = pack_blocks(blocks, BN_EPS)
+    n, hw, c = 64, 64, 64
+    ramp = 1 + torch.arange(n, device=dev)[:, None, None, None] / 8
+
+    def one_scale_per_batch(x):
+        """The stage with one dynamic int8 scale per conv for the whole
+        batch (the generic `quantized_conv`), instead of one per image."""
+        act = res = x.float()
+        for i in range(wq.shape[0]):
+            w = wq[i].reshape(3, 3, c, c).permute(3, 2, 0, 1)
+            out = quantized_conv(act, w, ws[i], 1, 1, bias[i])
+            act = torch.relu(out if i % 2 == 0 else out + res)
+            res = act if i % 2 else res
+        return act.to(x.dtype)
+
+    for dt in (torch.float32, torch.bfloat16):
+        x = (torch.randn(n, hw, hw, c, generator=g, device=dev) * ramp).to(dt)
+        ref = fused_layer1_plain(x, wq, ws, bias)
+        err = check(f"fused_layer1 {dt} {tuple(x.shape)}",
+                    fused_layer1_int8(x, wq, ws, bias), ref,
+                    fused_layer1.TOL[dt], failures)
+        control("one activation scale for the whole batch",
+                one_scale_per_batch(x), ref, fused_layer1.TOL[dt], failures)
+        xf = x.float()
+        block1 = fused_layer1_plain(xf, wq[:2], ws[:2], bias[:2])
+        conv3 = fused_layer1_plain(block1, wq[2:3], ws[2:3], bias[2:3])
+        control("residual dropped from the second block",
+                fused_layer1_plain(conv3, wq[3:], ws[3:], bias[3:]).to(dt),
+                ref, fused_layer1.TOL[dt], failures)
+        # the path it replaces: the int8 BasicBlocks, with static scales
+        # calibrated on this input, as the served encoder runs them
+        set_calibrating([blocks], True)
+        blocks(x)
+        set_calibrating([blocks], False)
+        install_scales([blocks])
+        prequantize([blocks])
+        ms = time_ms(torch, lambda: fused_layer1_int8(x, wq, ws, bias))
+        pms = time_ms(torch, lambda: fused_layer1_plain(x, wq, ws, bias))
+        ums = time_ms(torch, lambda: blocks(x))
+        for m in blocks.modules():               # fresh scales per dtype
+            if isinstance(m, Calibrated):
+                m.a_scale = None
+        ops = 2 * n * hw * hw * 9 * c * c * wq.shape[0]
+        nbytes = 2 * x.numel() * x.element_size() + wq.numel() \
+            + 4 * (ws.numel() + bias.numel())
+        t_ops, t_bytes = ops / INT8_TENSOR_OPS, nbytes / HBM_BYTES_PER_S
+        bound = 1e3 * max(t_ops, t_bytes)
+        print(f"    kernel {ms:.4f} ms, plain {pms:.4f} ms, unfused int8 "
+              f"layer1 {ums:.4f} ms, bound {bound:.4f} ms [{card}]")
+        rows[("fused_layer1", dt)] = dict(
+            ms=ms, plain_ms=pms, library_ms=None, unfused_ms=ums,
+            bound_ms=bound, max_abs_err=err,
+            bound_by="operations" if t_ops >= t_bytes else "bytes")
     if failures:
         raise AssertionError(f"kernel checks failed: {failures}")
     return rows
 
 
-def phase_full_path(torch, card):
-    import numpy as np
-    from egotap_tpu_torch.ops.attention import multihead_attention_packed
+def wrappers():
+    """Every kernel wrapper, by the name the JSON line gives it."""
+    from egotap_tpu_torch.ops.attention import (multihead_attention,
+                                                multihead_attention_packed)
+    from egotap_tpu_torch.ops.fused_layer1 import fused_layer1_int8
     from egotap_tpu_torch.ops.pu_kernel import pu_chain_fused
     from egotap_tpu_torch.ops.upsample import upsample2x_align_corners
+    return {"upsample": upsample2x_align_corners,
+            "attention": multihead_attention_packed,
+            "pu_chain": pu_chain_fused,
+            "attention_unpacked": multihead_attention,
+            "fused_layer1": fused_layer1_int8}
+
+
+def reset_counts():
+    for w in wrappers().values():
+        w.launches = 0
+
+
+def read_counts():
+    return {n: w.launches for n, w in wrappers().items()}
+
+
+# launches per Predictor forward, in every precision
+PER_FORWARD = {"upsample": 6, "attention": 3, "pu_chain": 1,
+               "attention_unpacked": 0, "fused_layer1": 0}
+
+
+def serve(torch, pred, rgb_dev, label, card, requests=3):
+    """Warm up, then serve ``requests`` batches with the launch counters
+    zeroed just before; checks the counts and the output. Returns (counts,
+    last output)."""
+    import numpy as np
+    pred._forward(rgb_dev)                      # warm-up (cuDNN plans)
+    torch.cuda.synchronize()
+    reset_counts()
+    times = []
+    for _ in range(requests):
+        t0 = time.perf_counter()
+        out = pred(rgb_dev)
+        times.append(time.perf_counter() - t0)
+    counts = read_counts()
+    print(f"  {label}: launches over {requests} forwards: {counts}")
+    for n, c in counts.items():
+        if c != requests * PER_FORWARD[n]:
+            raise AssertionError(f"{label}: {n} launched {c} times, "
+                                 f"expected {requests * PER_FORWARD[n]}")
+    batch = rgb_dev.shape[0]
+    if out.shape != (batch, 16, 3) or not np.isfinite(out).all():
+        raise AssertionError(f"{label}: bad output {out.shape}")
+    med = statistics.median(times)
+    print(f"  {label}: forward median {1e3 * med:.3f} ms over {requests} "
+          f"requests of batch {batch} = {batch / med:.2f} pairs/s [{card}]")
+    return counts, out
+
+
+class CodeTape:
+    """The card's int8 forward held against the CPU's, code by code. In
+    ``record`` mode the port's `quantize_activation` keeps every int8
+    code array it makes (the CPU forward); in ``force`` mode it holds the
+    card's codes at each call against the next kept ones (same shape, at
+    most FLIP_RATE of them one step off) and goes on with the CPU's, so a
+    code flipped by float sums in another order cannot cascade."""
+
+    def __init__(self):
+        from egotap_tpu_torch.ops import quant
+        self.quant, self.real = quant, quant.quantize_activation
+        self.codes, self.used, self.flips, self.total = [], 0, 0, 0
+        self.worst = 0.0                 # the largest share of one call
+
+    def record(self, x, a_scale=None):
+        xq, scale = self.real(x, a_scale)
+        self.codes.append(xq.clone())
+        return xq, scale
+
+    def force(self, x, a_scale=None):
+        xq, scale = self.real(x, a_scale)
+        want = self.codes[self.used].to(xq.device)
+        self.used += 1
+        if xq.shape != want.shape:
+            raise AssertionError(f"int8 call {self.used}: shape {xq.shape}, "
+                                 f"the CPU's {want.shape}")
+        diff = (xq.int() - want.int()).abs()
+        flips = int((diff > 0).sum())
+        self.flips += flips
+        self.total += diff.numel()
+        self.worst = max(self.worst, flips / diff.numel())
+        if int(diff.max()) > 1 or flips > FLIP_RATE * diff.numel():
+            raise AssertionError(f"int8 call {self.used}: {flips} of "
+                                 f"{diff.numel()} codes differ, by up to "
+                                 f"{int(diff.max())}")
+        return want, scale
+
+    def run(self, mode, fn, *args):
+        self.quant.quantize_activation = getattr(self, mode)
+        try:
+            return fn(*args)
+        finally:
+            self.quant.quantize_activation = self.real
+
+
+def max_dev(got, ref):
+    import numpy as np
+    return float(np.abs(got - ref).max()), float(np.abs(ref).max())
+
+
+def phase_full_path(torch, card):
+    from egotap_tpu_torch.ops.quant import Calibrated
     from egotap_tpu_torch.serving import Predictor
 
-    wrappers = {"upsample": upsample2x_align_corners,
-                "attention": multihead_attention_packed,
-                "pu_chain": pu_chain_fused}
-    per_forward = {"upsample": 6, "attention": 3, "pu_chain": 1}
-    requests = 3
     g = torch.Generator().manual_seed(1)
     rgb = torch.randn(32, 2, 256, 256, 3, generator=g)
     rgb_dev = rgb.cuda()
@@ -226,35 +462,11 @@ def phase_full_path(torch, card):
         pred = Predictor(bf16=bf16, device="cuda", seed=0)
         torch.cuda.synchronize()
         print(f"  {label}: Predictor built in {time.perf_counter() - t0:.2f} s")
-        pred._forward(rgb_dev)                      # warm-up (cuDNN plans)
-        torch.cuda.synchronize()
-        for w in wrappers.values():
-            w.launches = 0
-        times = []
-        for _ in range(requests):
-            t0 = time.perf_counter()
-            out = pred(rgb_dev)
-            times.append(time.perf_counter() - t0)
-        counts = {n: w.launches for n, w in wrappers.items()}
-        print(f"  {label}: launches over {requests} forwards: {counts}")
-        for n, c in counts.items():
-            if c != requests * per_forward[n]:
-                raise AssertionError(
-                    f"{label}: {n} launched {c} times, expected "
-                    f"{requests * per_forward[n]}")
-        if out.shape != (32, 16, 3) or not np.isfinite(out).all():
-            raise AssertionError(f"{label}: bad output {out.shape}")
-        med = statistics.median(times)
-        print(f"  {label}: forward median {1e3 * med:.3f} ms over {requests} "
-              f"requests of batch 32 = {32 / med:.2f} pairs/s [{card}]")
-        launches[label] = counts
-        outputs[label] = out
+        launches[label], outputs[label] = serve(torch, pred, rgb_dev, label,
+                                                card)
         if not bf16:
             cpu = Predictor(bf16=False, device="cpu", seed=0)
-            got = pred(rgb_dev[:2])
-            ref = cpu(rgb[:2])
-            err = float(np.abs(got - ref).max())
-            scale = float(np.abs(ref).max())
+            err, scale = max_dev(pred(rgb_dev[:2]), cpu(rgb[:2]))
             # f32 on both sides (TF32 off): only summation order differs
             print(f"  f32 card vs CPU, batch 2: max_abs_err={err:.3e} "
                   f"(tol 1e-4, max|cpu|={scale:.3e})")
@@ -262,15 +474,134 @@ def phase_full_path(torch, card):
                 raise AssertionError("card and CPU forwards disagree")
         del pred
         torch.cuda.empty_cache()
-    dev = float(np.abs(outputs["bf16"] - outputs["f32"]).max())
-    scale = float(np.abs(outputs["f32"]).max())
+    dev, scale = max_dev(outputs["bf16"], outputs["f32"])
     # bf16 rounds every conv and matrix operand: the gap is a few bf16
     # ulps of the pose, not a kernel's flip of one rounding
     print(f"  bf16 vs f32 pose on the card: max_abs_dev={dev:.3e} "
           f"(tol {BF16_POSE_TOL:.0e} x max|f32|={scale:.3e})")
     if dev > BF16_POSE_TOL * scale:
         raise AssertionError("bf16 and f32 forwards disagree")
-    return launches["bf16"]
+
+    # ---- the int8 serving configuration (bench.py:115-150)
+    gc = torch.Generator(device="cuda").manual_seed(10)
+    calib = [rgb_dev + 0.1 * torch.randn(rgb_dev.shape, generator=gc,
+                                         device="cuda") for _ in range(2)]
+    t0 = time.perf_counter()
+    pred = Predictor(bf16=True, int8=True, device="cuda", seed=0)
+    pred.calibrate(calib)
+    torch.cuda.synchronize()
+    print(f"  int8: Predictor built and calibrated in "
+          f"{time.perf_counter() - t0:.2f} s, static scales: "
+          f"{pred._has_static_scales()}")
+    launches["int8"], outputs["int8"] = serve(torch, pred, rgb_dev, "int8",
+                                              card)
+    del pred
+    dev, scale = max_dev(outputs["int8"], outputs["bf16"])
+    print(f"  int8 vs bf16 pose on the card: max_abs_dev={dev:.3e} "
+          f"(tol {INT8_POSE_TOL:.0e} x max|bf16|={scale:.3e})")
+    if dev > INT8_POSE_TOL * scale:
+        raise AssertionError("int8 and bf16 forwards disagree")
+    # int8 in f32, batch 2: the card against the CPU under the same scales
+    pred = Predictor(bf16=False, int8=True, device="cuda", seed=0)
+    pred.calibrate([c[:2] for c in calib])
+    cpu = Predictor(bf16=False, int8=True, device="cpu", seed=0)
+    for net, cpu_net in zip(pred.nets, cpu.nets):
+        cpu_mods = dict(cpu_net.named_modules())
+        for name, m in net.named_modules():
+            if isinstance(m, Calibrated) and m.a_scale is not None:
+                cpu_mods[name].a_scale = m.a_scale.cpu()
+    err, scale = max_dev(pred(rgb_dev[:2]), cpu(rgb[:2]))
+    print(f"  int8 f32 card vs CPU, batch 2, same static scales: "
+          f"max_abs_err={err:.3e} (tol {INT8_CPU_TOL:.0e} x "
+          f"max|cpu|={scale:.3e})")
+    if err > INT8_CPU_TOL * scale:
+        raise AssertionError("int8 card and CPU forwards disagree")
+    tape = CodeTape()
+    ref = [tape.run("record", f, rgb[:2]) for f in (cpu.heatmaps, cpu)]
+    got = [tape.run("force", f, rgb_dev[:2]) for f in (pred.heatmaps, pred)]
+    if tape.used != len(tape.codes):
+        raise AssertionError(f"card made {tape.used} int8 calls, the CPU "
+                             f"{len(tape.codes)}")
+    print(f"  int8 f32 card vs CPU, codes held to the CPU's: {tape.flips} "
+          f"of {tape.total} codes one step off in {tape.used} calls, at "
+          f"most {tape.worst:.3e} of one call's (tol {FLIP_RATE:.0e})")
+    for name, g, r in zip(("heatmap stack", "pose"), got, ref):
+        err, scale = max_dev(g, r)
+        print(f"    {name}: max_abs_err={err:.3e} (tol {FORCED_TOL:.0e} x "
+              f"max|cpu|={scale:.3e})")
+        if err > FORCED_TOL * scale:
+            raise AssertionError(f"int8 card and CPU {name}s disagree")
+    del pred
+    torch.cuda.empty_cache()
+    return launches["int8"]
+
+
+def phase_entry_points(torch, card):
+    """The encoder with the fused int8 layer1, and the unpacked attention
+    wrapper, each through its own entry point."""
+    from egotap_tpu_torch.models.resnet import ResNetEncoder
+    from egotap_tpu_torch.ops import attention
+    from egotap_tpu_torch.ops.attention import (attention_packed_plain,
+                                                multihead_attention)
+    from egotap_tpu_torch.ops.quant import prequantize
+    from egotap_tpu_torch.serving import init_weights
+
+    fused = ResNetEncoder("resnet18", quant=True, fused_layer1=True)
+    init_weights(fused, torch.Generator().manual_seed(3))
+    unfused = ResNetEncoder("resnet18", quant=True)
+    unfused.load_state_dict(fused.state_dict())
+    encs = [e.eval().cuda() for e in (fused, unfused)]
+    prequantize(encs)
+    x = torch.randn(64, 256, 256, 3, generator=torch.Generator().manual_seed(4)
+                    ).cuda().bfloat16()
+    fused(x)                                      # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    got = fused(x)
+    counts = read_counts()
+    ref = unfused(x)
+    print(f"  fused-layer1 encoder, one forward of {tuple(x.shape)} bf16: "
+          f"launches {counts}")
+    if counts != dict(PER_FORWARD, fused_layer1=1, upsample=0, attention=0,
+                      pu_chain=0):
+        raise AssertionError("the fused encoder must launch kernel D once "
+                             "and nothing else")
+    for i in range(2, 6):
+        a, b = got[i].float(), ref[i].float()
+        rel = float((a - b).norm() / b.norm())
+        print(f"    layer{i - 1} fused vs unfused int8: rel-L2 {rel:.3e} "
+              f"(tol {FUSED_ENCODER_TOL})")
+        if not rel < FUSED_ENCODER_TOL:
+            raise AssertionError("fused and unfused encoders disagree")
+    fms = time_ms(torch, lambda: fused(x), iters=5)
+    ums = time_ms(torch, lambda: unfused(x), iters=5)
+    print(f"    encoder forward: fused {fms:.3f} ms, unfused {ums:.3f} ms "
+          f"[{card}]")
+    enc_counts = counts
+    del fused, unfused, encs
+    torch.cuda.empty_cache()
+
+    # the unpacked wrapper, one call at the Grid-ViT's shape
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn(32, 8, 576, 128, generator=g, device="cuda"
+                           ).bfloat16() for _ in range(3))
+    reset_counts()
+    got = multihead_attention(q, k, v)
+    counts = read_counts()
+    print(f"  unpacked attention, one call of {tuple(q.shape)} bf16: "
+          f"launches {counts}")
+    if counts != dict(PER_FORWARD, upsample=0, attention=0, pu_chain=0,
+                      attention_unpacked=1):
+        raise AssertionError("the unpacked wrapper must launch kernel B once")
+    flat = [x.reshape(256, 576, 128) for x in (q, k, v)]
+    failures = []
+    check("unpacked attention output", got, attention_packed_plain(
+        *flat, heads=1).reshape(got.shape), attention.TOL[torch.bfloat16],
+        failures)
+    if failures:
+        raise AssertionError("the unpacked wrapper's output is wrong")
+    return {"fused_layer1": enc_counts["fused_layer1"],
+            "attention_unpacked": counts["attention_unpacked"]}
 
 
 def main() -> int:
@@ -280,6 +611,7 @@ def main() -> int:
         return 2
     import torch.nn.functional as F
     from egotap_tpu_torch.ops import _build
+    torch.set_grad_enabled(False)              # inference only
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -303,8 +635,12 @@ def main() -> int:
     print("phase 2: kernels vs plain versions on the card")
     rows = phase_kernels(torch, F, card)
 
-    print("phase 3: full serving path, batch 32, bf16 and f32")
+    print("phase 3: full serving path, batch 32, bf16, f32 and int8")
     launches = phase_full_path(torch, card)
+
+    print("phase 4: entry points off the Predictor's path")
+    launches.update(phase_entry_points(torch, card))
+    print(f"all phases passed in {time.perf_counter() - t0:.1f} s")
 
     meta = {
         "upsample": ("upsample2x_align_corners", "cuda",
@@ -315,6 +651,12 @@ def main() -> int:
                       "egotap_tpu/ops/attention.py:122"),
         "pu_chain": ("pu_chain", "cuda", "egotap_tpu_torch/csrc/pu_chain.cu",
                      "egotap_tpu/ops/pu_kernel.py:74"),
+        "attention_unpacked": ("attention_unpacked", "cuda",
+                               "egotap_tpu_torch/csrc/attention.cu",
+                               "egotap_tpu/ops/attention.py:43"),
+        "fused_layer1": ("fused_layer1_int8", "cuda",
+                         "egotap_tpu_torch/csrc/fused_layer1.cu",
+                         "egotap_tpu/ops/fused_layer1.py:121"),
     }
     kernels = []
     for key, (name, route, source, replaces) in meta.items():
@@ -326,6 +668,8 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "dtype": "bfloat16"})
+        if "unfused_ms" in r:
+            kernels[-1]["unfused_ms"] = r["unfused_ms"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,19 +1,23 @@
 """Where the serving forward's device time goes, on one card.
 
-    python -m egotap_tpu_torch.breakdown
+    python -m egotap_tpu_torch.breakdown           # bf16 and f32
+    python -m egotap_tpu_torch.breakdown --int8    # the int8 serving forward
 
 Builds a full-width `Predictor` (the `serving_config()` configuration,
-seeded random weights) in bf16 and in f32, runs `ITERS` forwards of
-``(BATCH, 2, 256, 256, 3)`` under `torch.profiler`, and prints per
-forward: the host wall time, the summed device time of the kernels, the
-device's idle share of the wall time, and the device time by kernel
-group (the port's three kernels, convolutions, matrix products, the
-rest), each group's top kernels by name. Needs a CUDA card; it does
-not fall back to the CPU.
+seeded random weights) in bf16 and in f32, or with ``--int8`` in the
+int8 serving configuration (bf16 compute, int8 heatmap nets and lifter,
+static scales calibrated on 2 batches of the input + 0.1 noise, as
+`bench.py` does), runs `ITERS` forwards of ``(BATCH, 2, 256, 256, 3)``
+under `torch.profiler`, and prints per forward: the host wall time, the
+summed device time of the kernels, the device's idle share of the wall
+time, and the device time by kernel group (the port's kernels, int8 and
+float matrix products, convolutions, the rest), each group's top
+kernels by name. Needs a CUDA card; it does not fall back to the CPU.
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
 import statistics
 import subprocess
@@ -28,6 +32,7 @@ ITERS = 3                  # profiled forwards, after one warm-up
 GROUPS = (("kernel A upsample", ("upsample2x",)),
           ("kernel B attention", ("attention_",)),
           ("kernel C pu_chain", ("pu_chain",)),
+          ("int8 matrix product (_int_mm)", ("gemm_s8", "i8i32", "imma")),
           ("convolution (cuDNN)", ("conv", "cudnn", "implicit", "winograd",
                                    "fprop", "dgrad", "sm90_xmma")),
           ("matrix product (cuBLAS)", ("gemm", "cutlass", "nvjet")),
@@ -77,7 +82,11 @@ def profile(pred, rgb) -> None:
             print(f"      {ms:9.3f} ms  {name[:90]}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--int8", action="store_true",
+                        help="profile the calibrated int8 serving forward")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("breakdown: no CUDA device", file=sys.stderr)
         return 2
@@ -87,10 +96,15 @@ def main() -> int:
                           text=True, check=True).stdout.strip().splitlines()[0]
     g = torch.Generator().manual_seed(1)
     rgb = torch.randn(BATCH, 2, 256, 256, 3, generator=g).cuda()
-    for bf16 in (True, False):
-        print(f"{'bf16' if bf16 else 'f32'} forward, batch {BATCH} "
-              f"[{card}]")
-        pred = Predictor(bf16=bf16, device="cuda", seed=0)
+    modes = [("int8", True)] if args.int8 else [("bf16", True),
+                                                 ("f32", False)]
+    for label, bf16 in modes:
+        print(f"{label} forward, batch {BATCH} [{card}]")
+        pred = Predictor(bf16=bf16, int8=args.int8, device="cuda", seed=0)
+        if args.int8:
+            gc = torch.Generator(device="cuda").manual_seed(10)
+            pred.calibrate([rgb + 0.1 * torch.randn(
+                rgb.shape, generator=gc, device="cuda") for _ in range(2)])
         profile(pred, rgb)
         del pred
         torch.cuda.empty_cache()

@@ -10,6 +10,11 @@ BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var,
 the ViT specials, the Encoder_Block alias keys, and zero tensors for the
 reference-only tensors its forward never reads (torchvision ``fc``, ViT
 ``cls_token`` and ``pooler``).
+
+`install_jax_scales` carries the static activation scales of a JAX
+``qparams`` collection (``a_scale`` entries, `amax_to_qparams`) into the
+port's int8 modules, mapping each JAX module path to the port's
+reference-layout module name (`port_module_name`).
 """
 
 from __future__ import annotations
@@ -176,12 +181,12 @@ def lifter_state_dict(variables: Dict[str, Any], num_vit_layers: int = 3,
 
 def heatmap_net_from_jax(variables: Dict[str, Any],
                          model_name: str = "resnet18", *, views: int = 2,
-                         device="cuda") -> HeatmapUNet:
+                         quant: bool = False, device="cuda") -> HeatmapUNet:
     """A `HeatmapUNet` holding the JAX HeatmapUNet's weights (strict)."""
     dev = resolve_device(device)
     sd = heatmap_net_state_dict(variables, model_name)
     maps = sd["after_backbone.conv_heatmap.weight"].shape[0] // views
-    net = HeatmapUNet(maps, model_name, views)
+    net = HeatmapUNet(maps, model_name, views, quant)
     net.load_state_dict(sd, strict=True)
     return net.eval().to(dev)
 
@@ -195,3 +200,64 @@ def lifter_from_jax(variables: Dict[str, Any], num_vit_layers: int = 3, *,
     net = EgoTAPLifter(vit_layers=num_vit_layers, **lifter_kwargs)
     net.load_state_dict(sd, strict=True)
     return net.eval().to(dev)
+
+
+# JAX ViTBlock submodule -> the port's (HF) name inside encoder.layer.{i}
+_VIT_NAMES = {"query": "attention.attention.query",
+              "key": "attention.attention.key",
+              "value": "attention.attention.value",
+              "attn_out": "attention.output.dense",
+              "mlp_in": "intermediate.dense", "mlp_out": "output.dense",
+              "qkv_in": "qkv_in"}
+_ENCODERS = {"pos_encoder": "pos_heatmap_encoder",
+             "rot_encoder": "rot_heatmap_encoder"}
+
+
+def port_module_name(path: Tuple[str, ...]) -> str:
+    """A JAX HeatmapUNet or EgoTAPLifter module path -> the port's module
+    name, e.g. ``("backbone", "layer1_0", "conv1")`` ->
+    ``backbone.backbone.backbone.layer1.0.conv1`` and ``("pos_encoder",
+    "vit", "layer0", "qkv_in")`` ->
+    ``pos_heatmap_encoder.vit.encoder.layer.0.qkv_in``."""
+    head, rest = path[0], path[1:]
+    if head == "backbone":                  # (layer{l}_{b}, conv)
+        li, bi = rest[0][len("layer"):].split("_")
+        conv = rest[1].replace("downsample_0", "downsample.0")
+        return f"backbone.backbone.backbone.layer{li}.{bi}.{conv}"
+    if head == "conv_heatmap":
+        return "after_backbone.conv_heatmap"
+    if head.endswith("_1x1") or head.startswith("conv_up"):
+        return f"after_backbone.{head}.0"
+    if head in _ENCODERS and rest[0] == "vit":      # (vit, layer{i}, name)
+        i = rest[1][len("layer"):]
+        return f"{_ENCODERS[head]}.vit.encoder.layer.{i}.{_VIT_NAMES[rest[2]]}"
+    if head in _ENCODERS:                           # (fc{n}, fc)
+        return f"{_ENCODERS[head]}.{rest[0]}.fc"
+    raise KeyError(f"no port module for JAX path {'/'.join(path)}")
+
+
+def jax_scales(qparams: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """{port module name: a_scale} for every ``a_scale`` entry of a JAX
+    ``qparams`` tree (weight entries are ignored: the port quantizes its
+    own weights, bit for bit the same)."""
+    out: Dict[str, np.ndarray] = {}
+
+    def walk(node, path):
+        for k, v in node.items():
+            if k == "a_scale":
+                out[port_module_name(path)] = np.asarray(v, np.float32)
+            elif isinstance(v, dict):
+                walk(v, path + (k,))
+
+    walk(qparams, ())
+    return out
+
+
+def install_jax_scales(net: torch.nn.Module, qparams: Dict[str, Any]) -> int:
+    """Set the static ``a_scale`` of each of ``net``'s int8 modules from a
+    JAX ``qparams`` tree of the same network; returns how many."""
+    dev = next(net.parameters()).device
+    scales = jax_scales(qparams)
+    for name, scale in scales.items():
+        net.get_submodule(name).a_scale = torch.tensor(scale, device=dev)
+    return len(scales)

@@ -26,6 +26,10 @@ class Config:
     skel_layer: str = "LSTM"               # only PU is ported
     n_skel_layers: int = 2
     pu_semantics: str = "chain"            # chain (reference parity) | tree
+    # int8 inference of the heatmap nets' convs and of the lifter's ViT
+    # and FC matmuls (ops/quant.py); `Predictor(int8=None)` follows these
+    int8_heatmap_inference: bool = False
+    int8_lifter_inference: bool = False
 
     # --- derived (set by derive()) --------------------------------------
     estimate_head: bool = True

@@ -12,9 +12,10 @@ variables carried across by `compat.from_jax` strict-load into them.
 
 Precision follows the JAX modules: matmuls and convolutions run in the
 input's dtype (weights cast to it), BatchNorm and LayerNorm compute in
-f32 and cast back. Only eval-mode BatchNorm is ported; training BN
-(per-view statistics, unbiased running variance) belongs to the training
-slice.
+f32 and cast back. With ``quant`` the conv is a `QConv` and the Linear a
+`QDense` (int8 inference, `ops/quant.py`), with the same keys. Only
+eval-mode BatchNorm is ported; training BN (per-view statistics, unbiased
+running variance) belongs to the training slice.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from egotap_tpu_torch.ops.quant import QConv, QDense
 
 BN_EPS = 1e-5
 LEAKY_SLOPE = 0.2
@@ -72,24 +75,28 @@ class ConvReLU(nn.Sequential):
     ``nn.Sequential(nn.Conv2d, nn.ReLU)``."""
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
-                 padding: int = 1):
-        super().__init__(nn.Conv2d(in_channels, features, kernel_size,
-                                   padding=padding), nn.ReLU())
+                 padding: int = 1, quant: bool = False):
+        conv = QConv if quant else nn.Conv2d
+        super().__init__(conv(in_channels, features, kernel_size,
+                              padding=padding), nn.ReLU())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if isinstance(self[0], QConv):
+            return torch.relu(self[0](x))
         return torch.relu(conv_nhwc(x, self[0]))
 
 
 class FCBlock(nn.Module):
     """Linear + BatchNorm1d + LeakyReLU(0.2) on (rows, features)."""
 
-    def __init__(self, in_features: int, features: int):
+    def __init__(self, in_features: int, features: int, quant: bool = False):
         super().__init__()
-        self.fc = nn.Linear(in_features, features)
+        self.fc = (QDense if quant else nn.Linear)(in_features, features)
         self.bn = nn.BatchNorm1d(features, eps=BN_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return leaky_relu(batch_norm_eval(linear(x, self.fc), self.bn))
+        y = self.fc(x) if isinstance(self.fc, QDense) else linear(x, self.fc)
+        return leaky_relu(batch_norm_eval(y, self.bn))
 
 
 class MLPDecoder(nn.Module):

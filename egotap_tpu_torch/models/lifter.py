@@ -17,6 +17,8 @@ Ld = 2 sin-limb channels):
 
 Predicted row i is trained against preset-order ground-truth row i (off by
 one joint); the network learns the permutation — kept as it is.
+``quant`` makes both encoders int8 (`egotap_tpu/models/lifter.py:58`,
+`:87-94`); the PU chain and the heads stay in the compute dtype.
 """
 
 from __future__ import annotations
@@ -40,7 +42,8 @@ class EgoTAPLifter(nn.Module):
                  limb_dim: int = 2, hidden_size: int = 128,
                  skel_layer: str = "PU", num_pu_layers: int = 2,
                  vit_layers: int = 3, use_global_offset: bool = True,
-                 pu_semantics: str = "chain", heatmap_size: int = 64):
+                 pu_semantics: str = "chain", heatmap_size: int = 64,
+                 quant: bool = False):
         super().__init__()
         if skel_layer != "PU":
             raise NotImplementedError(
@@ -54,9 +57,9 @@ class EgoTAPLifter(nn.Module):
         bh = hidden_size * V
         self.pos_heatmap_encoder = GridViTEncoder(
             num_tiles=J * V, hidden_size=hidden_size, vit_layers=vit_layers,
-            heatmap_size=heatmap_size)
+            heatmap_size=heatmap_size, quant=quant)
         self.rot_heatmap_encoder = LimbFCEncoder(
-            Ld * heatmap_size * heatmap_size, hidden_size)
+            Ld * heatmap_size * heatmap_size, hidden_size, quant)
         self.skel_sequential_layer = nn.ModuleDict({"lstm_custom": PUChain(
             bh, bh, 2 * bh, num_pu_layers, pu_semantics)})
         feature_size = 2 * bh

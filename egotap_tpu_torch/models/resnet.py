@@ -10,9 +10,16 @@ Counterpart of `egotap_tpu/models/resnet.py` for the basic-block nets
 Submodule names are torchvision's (``conv1``, ``bn1``,
 ``layer{1..4}.{i}.conv1``, ``downsample.0`` ...), so the state_dict keys
 are the reference's. Convolutions and max-pooling stay PyTorch / cuDNN
-calls, as the JAX package leaves them to XLA. Bottleneck nets
-(resnet50/101), the space-to-depth stem and the int8 paths are not
-ported yet.
+calls, as the JAX package leaves them to XLA.
+
+int8 inference (``quant``, `egotap_tpu/models/resnet.py`): every block
+folds BatchNorm into its convs and runs each as `quantized_conv` on the
+folded f32 weights, except a conv with fewer than 128 input channels and
+no static scale, which stays a float conv in the compute dtype
+(`BasicBlock._folded_inference`); the 3-channel stem always does.
+``fused_layer1`` runs the whole of layer1 as kernel D
+(`ops/fused_layer1.py`, per-image scales). Bottleneck nets (resnet50/101)
+and the space-to-depth stem are not ported.
 """
 
 from __future__ import annotations
@@ -24,6 +31,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from egotap_tpu_torch.models.layers import BN_EPS, batch_norm_eval, conv_nhwc
+from egotap_tpu_torch.ops.fused_layer1 import (fold_bn, fused_layer1_int8,
+                                               pack_blocks)
+from egotap_tpu_torch.ops.quant import (Calibrated, WeightCache,
+                                        conv_nhwc_float, quantize_weights,
+                                        quantized_conv)
 
 RESNET_SPECS = {
     "resnet18": ("basic", (2, 2, 2, 2)),
@@ -38,24 +50,81 @@ def feature_expansion(model_name: str) -> int:
     return 1 if kind == "basic" else 4
 
 
-def _conv(cin: int, cout: int, kernel: int, stride: int) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, kernel, stride, kernel // 2, bias=False)
+class _QConvParams(WeightCache, Calibrated, nn.Conv2d):
+    """An nn.Conv2d (same keys) whose BN-folded int8 form the block
+    computes, with the calibration plumbing at the conv's path (JAX
+    `_QConvParams`); `BasicBlock.prequantize` caches the folded bias and
+    int8 weights here."""
+
+    cached = ("w_q", "w_scale", "folded_bias")
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._init_calibration()
+        self._init_cache()
+
+
+def _conv(cin: int, cout: int, kernel: int, stride: int,
+          quant: bool = False) -> nn.Conv2d:
+    conv = _QConvParams if quant else nn.Conv2d
+    return conv(cin, cout, kernel, stride, kernel // 2, bias=False)
 
 
 class BasicBlock(nn.Module):
-    def __init__(self, cin: int, features: int, stride: int = 1):
+    def __init__(self, cin: int, features: int, stride: int = 1,
+                 quant: bool = False):
         super().__init__()
-        self.conv1 = _conv(cin, features, 3, stride)
+        self.quant = quant
+        self.conv1 = _conv(cin, features, 3, stride, quant)
         self.bn1 = nn.BatchNorm2d(features, eps=BN_EPS)
-        self.conv2 = _conv(features, features, 3, 1)
+        self.conv2 = _conv(features, features, 3, 1, quant)
         self.bn2 = nn.BatchNorm2d(features, eps=BN_EPS)
         self.downsample = None
         if stride != 1 or cin != features:
             self.downsample = nn.Sequential(
-                _conv(cin, features, 1, stride),
+                _conv(cin, features, 1, stride, quant),
                 nn.BatchNorm2d(features, eps=BN_EPS))
 
+    def _pairs(self):
+        pairs = [(self.conv1, self.bn1), (self.conv2, self.bn2)]
+        if self.downsample is not None:
+            pairs.append((self.downsample[0], self.downsample[1]))
+        return pairs
+
+    @torch.no_grad()
+    def prequantize(self) -> None:
+        """Fold BN and quantize the folded weights once (the JAX path does
+        both inline on every call, with the same result)."""
+        if self.quant:
+            for conv, bn in self._pairs():
+                w, conv.folded_bias = _fold(conv, bn)
+                conv.w_q, conv.w_scale = quantize_weights(w)
+
+    def _folded_conv(self, inp: torch.Tensor, conv: _QConvParams,
+                     bn: nn.BatchNorm2d) -> torch.Tensor:
+        a_scale = conv.calib_or_static(inp)
+        stride, pad = conv.stride[0], conv.padding[0]
+        if a_scale is None and inp.shape[-1] < 128:
+            w, c = _fold(conv, bn)
+            out = conv_nhwc_float(inp, w.to(inp.dtype), stride, pad)
+            return out + c.to(out.dtype)
+        if conv.w_q is None:
+            self.prequantize()
+        return quantized_conv(inp, conv.w_q, conv.w_scale, stride, pad,
+                              conv.folded_bias, a_scale)
+
+    def _folded_inference(self, x: torch.Tensor) -> torch.Tensor:
+        """BN-folded int8 block (JAX `BasicBlock._folded_inference`)."""
+        out = torch.relu(self._folded_conv(x, self.conv1, self.bn1))
+        out = self._folded_conv(out, self.conv2, self.bn2)
+        identity = x
+        if self.downsample is not None:
+            identity = self._folded_conv(x, *self.downsample)
+        return torch.relu(out + identity.to(out.dtype))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quant:
+            return self._folded_inference(x)
         out = torch.relu(batch_norm_eval(conv_nhwc(x, self.conv1), self.bn1))
         out = batch_norm_eval(conv_nhwc(out, self.conv2), self.bn2)
         identity = x
@@ -65,17 +134,31 @@ class BasicBlock(nn.Module):
         return torch.relu(out + identity)
 
 
+def _fold(conv: nn.Conv2d, bn: nn.BatchNorm2d):
+    return fold_bn(conv.weight, bn.weight, bn.bias, bn.running_mean,
+                   bn.running_var, BN_EPS)
+
+
 def max_pool_nhwc(x: torch.Tensor) -> torch.Tensor:
     """3x3 stride-2 max-pool with 1-pixel -inf padding, NHWC."""
     return F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
 
 
-class ResNetEncoder(nn.Module):
+class ResNetEncoder(WeightCache, nn.Module):
     """Returns [input, layer0, layer1, layer2, layer3, layer4] like the
-    reference's Encoder_Block.forward (net_architecture.py:75-85)."""
+    reference's Encoder_Block.forward (net_architecture.py:75-85).
 
-    def __init__(self, model_name: str = "resnet18"):
+    quant: int8 inference blocks; fused_layer1 (with quant): layer1 as
+    kernel D, with the same parameters."""
+
+    cached = ("layer1_wq", "layer1_ws", "layer1_bias")
+
+    def __init__(self, model_name: str = "resnet18", quant: bool = False,
+                 fused_layer1: bool = False):
         super().__init__()
+        self.quant = quant
+        self.fused_layer1 = fused_layer1
+        self._init_cache()
         kind, depths = RESNET_SPECS[model_name]
         if kind != "basic":
             raise NotImplementedError(
@@ -88,11 +171,24 @@ class ResNetEncoder(nn.Module):
             blocks = []
             for bi in range(depth):
                 stride = 2 if (li > 1 and bi == 0) else 1
-                blocks.append(BasicBlock(cin, width, stride))
+                blocks.append(BasicBlock(cin, width, stride, quant))
                 cin = width
             setattr(self, f"layer{li}", nn.Sequential(*blocks))
         # torchvision's classification head: in the checkpoints, never run
         self.fc = nn.Linear(512, 1000)
+
+    def prequantize(self) -> None:
+        if self.quant and self.fused_layer1:
+            self.layer1_wq, self.layer1_ws, self.layer1_bias = pack_blocks(
+                self.layer1, BN_EPS)
+
+    def _fused_layer1(self, x: torch.Tensor) -> torch.Tensor:
+        """Kernel D on layer1's folded, per-image-quantized blocks (JAX
+        `ResNetEncoder`, resnet.py:318-337)."""
+        if self.layer1_wq is None:
+            self.prequantize()
+        return fused_layer1_int8(x.contiguous(), self.layer1_wq,
+                                 self.layer1_ws, self.layer1_bias)
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         layer0 = torch.relu(batch_norm_eval(conv_nhwc(x, self.conv1),
@@ -100,6 +196,10 @@ class ResNetEncoder(nn.Module):
         out = max_pool_nhwc(layer0)
         feats = []
         for li in range(1, 5):
-            out = getattr(self, f"layer{li}")(out)
+            if (li == 1 and self.quant and self.fused_layer1
+                    and out.shape[-1] == 64):
+                out = self._fused_layer1(out)
+            else:
+                out = getattr(self, f"layer{li}")(out)
             feats.append(out)
         return [x, layer0, *feats]

@@ -15,6 +15,9 @@ Submodules follow the HF key layout (``embeddings.*``,
 ``encoder.layer.{i}.attention.attention.query`` ...). LayerNorm eps is
 1e-12; GELU is the exact erf form at f32 and the tanh form under bf16
 (`egotap_tpu/models/vit.py:98-102`). Attention runs kernel B on the card.
+With ``quant`` the block's projections are `QDense` (int8 inference,
+`egotap_tpu/models/vit.py:55-103`): one `QuantStub` ``qkv_in`` quantizes
+the LayerNorm output once for q, k and v; ``patch_proj`` stays float.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from torch import nn
 
 from egotap_tpu_torch.models.layers import layer_norm, linear
 from egotap_tpu_torch.ops.attention import multihead_attention_packed
+from egotap_tpu_torch.ops.quant import QDense, QuantStub
 
 LN_EPS = 1e-12  # HF ViT layer_norm_eps
 PATCH = 16
@@ -51,50 +55,57 @@ class _Linear(nn.Linear):
 
 
 class _SelfAttention(nn.Module):
-    def __init__(self, d: int):
+    def __init__(self, d: int, lin):
         super().__init__()
-        self.query, self.key, self.value = _Linear(d, d), _Linear(d, d), \
-            _Linear(d, d)
+        self.query, self.key, self.value = lin(d, d), lin(d, d), lin(d, d)
 
 
 class _AttentionOutput(nn.Module):
-    def __init__(self, d: int):
+    def __init__(self, d: int, lin):
         super().__init__()
-        self.dense = _Linear(d, d)
+        self.dense = lin(d, d)
 
 
 class _Attention(nn.Module):
-    def __init__(self, d: int):
+    def __init__(self, d: int, lin):
         super().__init__()
-        self.attention = _SelfAttention(d)
-        self.output = _AttentionOutput(d)
+        self.attention = _SelfAttention(d, lin)
+        self.output = _AttentionOutput(d, lin)
 
 
 class _Dense(nn.Module):
-    def __init__(self, d_in: int, d_out: int):
+    def __init__(self, d_in: int, d_out: int, lin):
         super().__init__()
-        self.dense = _Linear(d_in, d_out)
+        self.dense = lin(d_in, d_out)
 
 
 class ViTBlock(nn.Module):
     """Pre-LN transformer block (HF ViTLayer, modeling_vit.py:347-386)."""
 
-    def __init__(self, hidden_size: int, num_heads: int, mlp_dim: int):
+    def __init__(self, hidden_size: int, num_heads: int, mlp_dim: int,
+                 quant: bool = False):
         super().__init__()
+        lin = QDense if quant else _Linear
         self.num_heads = num_heads
-        self.attention = _Attention(hidden_size)
-        self.intermediate = _Dense(hidden_size, mlp_dim)
-        self.output = _Dense(mlp_dim, hidden_size)
+        self.attention = _Attention(hidden_size, lin)
+        self.intermediate = _Dense(hidden_size, mlp_dim, lin)
+        self.output = _Dense(mlp_dim, hidden_size, lin)
         self.layernorm_before = nn.LayerNorm(hidden_size, eps=LN_EPS)
         self.layernorm_after = nn.LayerNorm(hidden_size, eps=LN_EPS)
+        self.qkv_in = QuantStub() if quant else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         sa = self.attention.attention
         y = layer_norm(x, self.layernorm_before)
+        if self.qkv_in is not None:     # y quantized once for q, k and v
+            pre_q = self.qkv_in(y)
+            q, k, v = (lin(y, pre_q=pre_q)
+                       for lin in (sa.query, sa.key, sa.value))
+        else:
+            q, k, v = sa.query(y), sa.key(y), sa.value(y)
         # q/k/v stay in projection layout (B, S, H*Dh): the kernel slices
         # heads itself, so no (B, H, S, Dh) transposes on either side
-        ctx = multihead_attention_packed(sa.query(y), sa.key(y), sa.value(y),
-                                         self.num_heads)
+        ctx = multihead_attention_packed(q, k, v, self.num_heads)
         x = x + self.attention.output.dense(ctx)
         y = layer_norm(x, self.layernorm_after)
         y = self.intermediate.dense(y)
@@ -122,10 +133,12 @@ class _Embeddings(nn.Module):
 
 
 class _Encoder(nn.Module):
-    def __init__(self, hidden: int, num_layers: int, num_heads: int):
+    def __init__(self, hidden: int, num_layers: int, num_heads: int,
+                 quant: bool):
         super().__init__()
         self.layer = nn.ModuleList(
-            ViTBlock(hidden, num_heads, 4 * hidden) for _ in range(num_layers))
+            ViTBlock(hidden, num_heads, 4 * hidden, quant)
+            for _ in range(num_layers))
 
 
 class _Pooler(nn.Module):
@@ -141,14 +154,15 @@ class GridViT(nn.Module):
 
     def __init__(self, num_tiles: int, channels: int = 1,
                  hidden_size: int = 1024, num_layers: int = 3,
-                 num_heads: int = 8, heatmap_size: int = 64):
+                 num_heads: int = 8, heatmap_size: int = 64,
+                 quant: bool = False):
         super().__init__()
         self.num_tiles = num_tiles
         self.patches_per_side = heatmap_size // PATCH
         self.tiles_per_side = int(np.sqrt(num_tiles - 1)) + 1
         total = self.tiles_per_side ** 2 * self.patches_per_side ** 2
         self.embeddings = _Embeddings(channels, hidden_size, total)
-        self.encoder = _Encoder(hidden_size, num_layers, num_heads)
+        self.encoder = _Encoder(hidden_size, num_layers, num_heads, quant)
         self.layernorm = nn.LayerNorm(hidden_size, eps=LN_EPS)
         self.pooler = _Pooler(hidden_size)
         self.register_buffer("perm", torch.from_numpy(tile_permutation(

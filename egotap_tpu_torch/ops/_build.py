@@ -36,6 +36,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                   [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP]},
     "pu_chain": {"egotap_pu_chain":
                  [_VP] * 11 + [_I, _I, _I, _I, _VP]},
+    "fused_layer1": {"egotap_fused_layer1": [_VP] * 7 + [_I] * 5 + [_VP]},
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -1,14 +1,18 @@
-"""Multi-head softmax attention on the packed projection layout.
+"""Multi-head softmax attention on the packed projection layout, and on
+the unpacked (B, H, S, Dh) one.
 
-Counterpart of `egotap_tpu/ops/attention.py:multihead_attention_packed`.
-q/k/v stay exactly as the projections produce them, ``(B, S, H*Dh)``;
-head h is the column block ``[h*Dh, (h+1)*Dh)``, so no transposes.
+Counterpart of `egotap_tpu/ops/attention.py:multihead_attention_packed`
+and `multihead_attention`. In the packed layout q/k/v stay exactly as
+the projections produce them, ``(B, S, H*Dh)``; head h is the column
+block ``[h*Dh, (h+1)*Dh)``, so no transposes. The unpacked layout
+flattened to ``(B*H, S, Dh)`` is the packed one with a single head.
 
-`multihead_attention_packed` runs kernel B (``csrc/attention.cu``) for a
-CUDA tensor and `attention_packed_plain` for a CPU tensor. Both follow
-the TPU kernel's numerics: f32 scores times ``1/sqrt(Dh)``, exact
-max-subtracted softmax in f32, probabilities normalised and then rounded
-to v's dtype, ``p @ v`` accumulated in f32, one rounding of the output.
+Both wrappers run kernel B (``csrc/attention.cu``) for a CUDA tensor and
+`attention_packed_plain` for a CPU tensor; each counts its own launches.
+Both follow the TPU kernel's numerics: f32 scores times ``1/sqrt(Dh)``,
+exact max-subtracted softmax in f32, probabilities normalised and then
+rounded to v's dtype, ``p @ v`` accumulated in f32, one rounding of the
+output.
 """
 
 from __future__ import annotations
@@ -53,21 +57,20 @@ TOL = {torch.float32: (2e-5, 2e-6), torch.bfloat16: (8e-3, 5e-4)}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def multihead_attention_packed(q: torch.Tensor, k: torch.Tensor,
-                               v: torch.Tensor, heads: int) -> torch.Tensor:
-    """(B, S, H*Dh) q/k/v (projection layout) -> (B, S, H*Dh) context."""
-    if q.device.type == "cpu":
-        return attention_packed_plain(q, k, v, heads)
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            heads: int) -> torch.Tensor:
+    """Check what kernel B covers and launch it on (B, S, H*Dh)."""
     b, s, d = q.shape
     if k.shape != q.shape or v.shape != q.shape or not (
             q.dtype == k.dtype == v.dtype):
         raise ValueError("q, k, v must share shape and dtype")
     if q.dtype not in _DTYPE_CODE:
         raise NotImplementedError(f"attention kernel: dtype {q.dtype}")
-    if d != heads * HEAD_DIM or s > MAX_SEQ:
+    if d != heads * HEAD_DIM or s > MAX_SEQ or b > 65535:
         raise NotImplementedError(
-            f"attention kernel covers head_dim {HEAD_DIM} and S <= {MAX_SEQ}; "
-            f"got d={d}, heads={heads}, S={s}")
+            f"attention kernel covers head_dim {HEAD_DIM}, S <= {MAX_SEQ} "
+            f"and at most 65535 instances; got d={d}, heads={heads}, S={s}, "
+            f"B={b}")
     # contiguous and 16-byte aligned: the bf16 kernel moves 16-byte vectors
     q, k, v = (x if x.is_contiguous() and x.data_ptr() % 16 == 0
                else x.clone(memory_format=torch.contiguous_format)
@@ -76,10 +79,43 @@ def multihead_attention_packed(q: torch.Tensor, k: torch.Tensor,
     lib = _build.library("attention")
     _build.check(lib.egotap_attention_packed(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, heads,
-        HEAD_DIM, _DTYPE_CODE[q.dtype], _build.stream_ptr(q)),
-        "attention_packed")
+        HEAD_DIM, _DTYPE_CODE[q.dtype], _build.stream_ptr(q)), "attention")
+    return out
+
+
+def multihead_attention_packed(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, heads: int) -> torch.Tensor:
+    """(B, S, H*Dh) q/k/v (projection layout) -> (B, S, H*Dh) context."""
+    if q.device.type == "cpu":
+        return attention_packed_plain(q, k, v, heads)
+    out = _launch(q, k, v, heads)
     multihead_attention_packed.launches += 1
     return out
 
 
 multihead_attention_packed.launches = 0
+
+
+def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                        ) -> torch.Tensor:
+    """(B, H, S, Dh) q/k/v -> (B, H, S, Dh) context.
+
+    Counterpart of `egotap_tpu/ops/attention.py:multihead_attention`
+    (`_attention_pallas` on (B*H, S, Dh)). Flattened to (B*H, S, Dh) it is
+    the packed layout with one head, so on the card it launches kernel B
+    with ``heads=1``: grid (ceil(S/64), 1, B*H). The kernel masks a
+    partial query and key tile, so it takes any S up to `MAX_SEQ`, also
+    where JAX's Pallas rule (``S % 8 == 0 and Dh % 128 == 0``) falls back
+    to jnp; a card tensor it does not cover (Dh other than 128, S above
+    `MAX_SEQ`) raises. A CPU tensor takes the plain formula."""
+    b, h, s, d = q.shape
+    flat = [x.reshape(b * h, s, d) for x in (q, k, v)]
+    if q.device.type == "cpu":
+        out = attention_packed_plain(*flat, heads=1)
+    else:
+        out = _launch(*flat, heads=1)
+        multihead_attention.launches += 1
+    return out.reshape(b, h, s, d)
+
+
+multihead_attention.launches = 0

@@ -1,14 +1,20 @@
 """Inference/serving API: stereo RGB -> 3D pose on one card.
 
-Counterpart of `egotap_tpu/serving.py:Predictor` (bf16 and f32 paths;
-int8, ``shard()``, ``calibrate()`` and ``from_orbax()`` are not ported
-yet). The forward is the JAX `_forward`: two `HeatmapUNet`s (pos, rot)
-on the same stereo input, their outputs concatenated into the heatmap
-stack, then `EgoTAPLifter`.
+Counterpart of `egotap_tpu/serving.py:Predictor` (bf16, f32 and int8
+paths; ``shard()`` and ``from_orbax()`` are not ported yet). The forward
+is the JAX `_forward`: two `HeatmapUNet`s (pos, rot) on the same stereo
+input, their outputs concatenated into the heatmap stack, then
+`EgoTAPLifter`.
 
     pred = Predictor.from_reference_checkpoints(
         heatmap_pth, rot_heatmap_pth, lifter_pth, preset="UnrealEgo")
     poses = pred(rgb)          # (B, 2, 256, 256, 3) -> (B, J, 3)
+
+int8 serving (the deployment configuration of `bench.py`): int8 weights
+are quantized at construction, then `calibrate` installs static
+activation scales from representative inputs:
+
+    pred = Predictor(bf16=True, int8=True).calibrate(calib_batches)
 
 Runs on the card unless ``device="cpu"`` is passed; with no card and no
 ``device="cpu"`` construction raises.
@@ -27,6 +33,8 @@ from egotap_tpu_torch.core.device import resolve_device, set_f32_numerics
 from egotap_tpu_torch.models.cells import PUChain
 from egotap_tpu_torch.models.heatmap_net import HeatmapUNet
 from egotap_tpu_torch.models.lifter import EgoTAPLifter
+from egotap_tpu_torch.ops.quant import (Calibrated, install_scales,
+                                        prequantize, set_calibrating)
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -69,12 +77,14 @@ def cast_matmul_weights(module: nn.Module, dtype: torch.dtype) -> None:
     """Store conv and linear weights in the compute dtype once, so the
     per-op casts of the forward are no-ops. The PU chain keeps f32
     parameters: its kernel takes f32 biases and casts its matrices
-    itself. BatchNorm, LayerNorm and embeddings stay f32 (they compute
-    in f32)."""
+    itself. int8 modules keep f32 weights, which they quantize (and fold
+    BatchNorm into) as the JAX package does. BatchNorm, LayerNorm and
+    embeddings stay f32 (they compute in f32)."""
     skip = {id(m) for c in module.modules() if isinstance(c, PUChain)
             for m in c.modules()}
     for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d)) and id(m) not in skip:
+        if (isinstance(m, (nn.Linear, nn.Conv2d)) and id(m) not in skip
+                and not isinstance(m, Calibrated)):
             m.to(dtype)
 
 
@@ -83,20 +93,26 @@ class Predictor:
                  heatmap_state: Optional[StateDict] = None,
                  rot_heatmap_state: Optional[StateDict] = None,
                  lifter_state: Optional[StateDict] = None,
-                 bf16: bool = True, device="cuda", seed: int = 0):
+                 bf16: bool = True, int8: Optional[bool] = None,
+                 device="cuda", seed: int = 0):
         """cfg defaults to `serving_config()`. Each ``*_state`` is a
         reference-layout state_dict (strict-loaded); one left None gets
-        seeded random weights (`init_weights` with ``seed``)."""
+        seeded random weights (`init_weights` with ``seed``). int8:
+        int8 inference convs and matmuls (`ops/quant.py`); None follows
+        ``cfg.int8_heatmap_inference`` / ``cfg.int8_lifter_inference``."""
         self.device = resolve_device(device)
         cfg = cfg or serving_config()
         self.cfg = cfg
         self.bf16 = bf16
         self.dtype = torch.bfloat16 if bf16 else torch.float32
+        int8_hm = cfg.int8_heatmap_inference if int8 is None else int8
+        int8_lift = cfg.int8_lifter_inference if int8 is None else int8
         if self.device.type == "cuda":
             set_f32_numerics()
-        self.pos_net = HeatmapUNet(cfg.num_heatmap, cfg.model_name, cfg.views)
+        self.pos_net = HeatmapUNet(cfg.num_heatmap, cfg.model_name, cfg.views,
+                                   quant=int8_hm)
         self.rot_net = HeatmapUNet(cfg.num_rot_heatmap * cfg.limb_dim,
-                                   cfg.model_name, cfg.views)
+                                   cfg.model_name, cfg.views, quant=int8_hm)
         self.lifter = EgoTAPLifter(
             num_heatmap=cfg.num_heatmap, num_joints=cfg.num_joints_out,
             num_rot_heatmap=cfg.num_rot_heatmap, views=cfg.views,
@@ -104,7 +120,8 @@ class Predictor:
             skel_layer=cfg.skel_layer, num_pu_layers=cfg.n_skel_layers,
             use_global_offset=(cfg.joint_preset == "UnrealEgo"
                                and cfg.estimate_head),
-            pu_semantics=cfg.pu_semantics, heatmap_size=cfg.heatmap_res)
+            pu_semantics=cfg.pu_semantics, heatmap_size=cfg.heatmap_res,
+            quant=int8_lift)
         gen = torch.Generator().manual_seed(seed)
         for net, state in ((self.pos_net, heatmap_state),
                            (self.rot_net, rot_heatmap_state),
@@ -115,6 +132,39 @@ class Predictor:
                 net.load_state_dict(state, strict=True)
             net.eval().to(self.device)
             cast_matmul_weights(net, self.dtype)
+        self.int8 = (int8_hm, int8_lift)
+        self.nets = (self.pos_net, self.rot_net, self.lifter)
+        # pre-quantized int8 weights, off the hot path
+        prequantize(self.nets)
+
+    @torch.no_grad()
+    def calibrate(self, rgb_batches) -> "Predictor":
+        """Install static activation scales calibrated on representative
+        inputs (an iterable of (B, views, H, W, 3) float32 arrays), as
+        `egotap_tpu/serving.py:Predictor.calibrate`: each int8 module
+        records max|x| in the forward as it stands (dynamic scales for
+        >= 128 input channels, float for 64-127, and the lifter on that
+        forward's heatmap stack), then gets ``a_scale = max(amax, 1e-12)
+        / 127``. With static scales the outputs of a sample no longer
+        depend on the rest of its batch, and the 64-channel convs
+        quantize too. A no-op unless an int8 mode is on. Returns self."""
+        if not any(self.int8):
+            return self
+        set_calibrating(self.nets, True)
+        try:
+            for rgb in rgb_batches:
+                hm = self._heatmap_stack(torch.as_tensor(rgb).to(self.device))
+                if self.int8[1]:
+                    self.lifter(hm)
+        finally:
+            set_calibrating(self.nets, False)
+        install_scales(self.nets)
+        return self
+
+    def _has_static_scales(self) -> bool:
+        """True once `calibrate` installed static scales."""
+        return any(isinstance(m, Calibrated) and m.a_scale is not None
+                   for net in self.nets for m in net.modules())
 
     def _heatmap_stack(self, rgb: torch.Tensor) -> torch.Tensor:
         x = rgb.to(self.dtype)
@@ -141,7 +191,9 @@ class Predictor:
     def from_reference_checkpoints(cls, heatmap_pth: str,
                                    rot_heatmap_pth: str, lifter_pth: str,
                                    preset: str = "UnrealEgo",
-                                   bf16: bool = True, device="cuda",
+                                   bf16: bool = True,
+                                   int8: Optional[bool] = None,
+                                   device="cuda",
                                    **cfg_overrides) -> "Predictor":
         """Build from released EgoTAP ``.pth`` files
         (best_net_HeatMap / best_net_RotHeatMap / best_net_AutoEncoder)."""
@@ -152,4 +204,4 @@ class Predictor:
             return torch.load(path, map_location="cpu", weights_only=True)
 
         return cls(cfg, load(heatmap_pth), load(rot_heatmap_pth),
-                   load(lifter_pth), bf16=bf16, device=device)
+                   load(lifter_pth), bf16=bf16, int8=int8, device=device)

@@ -1,6 +1,7 @@
-"""The port's packed multi-head attention (egotap_tpu_torch.ops.attention)
-against the JAX package's `multihead_attention_packed`, which on the CPU
-takes its jnp default through `jax.lax.platform_dependent`."""
+"""The port's multi-head attention (egotap_tpu_torch.ops.attention), on
+the packed and the unpacked layout, against the JAX package's
+`multihead_attention_packed` and `multihead_attention`, which on the CPU
+take their jnp default through `jax.lax.platform_dependent`."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -52,6 +53,22 @@ def test_matches_jax_unpacked_layout():
     ref = multihead_attention(unpack(jq), unpack(jk), unpack(jv))
     ref = np.asarray(ref).transpose(0, 2, 1, 3).reshape(b, s, h * hd)
     _check(att.multihead_attention_packed(tq, tk, tv, h), ref, "float32")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,s,d", [
+    (2, 4, 48, 128),          # JAX's Pallas shape rule (S % 8, Dh % 128)
+    (2, 3, 36, 64),           # outside it: jnp in JAX; the card kernel
+])                            # takes S 36 and refuses Dh 64
+def test_unpacked_matches_jax(b, h, s, d, dtype):
+    (jq, jk, jv), (tq, tk, tv) = _qkv(b * h, s, d, dtype, seed=7)
+    shape = (b, h, s, d)
+    before = att.multihead_attention.launches
+    got = att.multihead_attention(*(x.reshape(shape) for x in (tq, tk, tv)))
+    assert att.multihead_attention.launches == before     # CPU: plain
+    assert got.shape == shape and got.dtype == tq.dtype
+    _check(got, multihead_attention(*(x.reshape(shape) for x in (jq, jk, jv))),
+           dtype)
 
 
 def test_rows_are_convex_combinations():

@@ -36,13 +36,14 @@ def test_port_imports_no_jax_and_nothing_of_egotap_tpu():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 15            # every module of the slice imported
+    assert int(count) >= 23            # every module of the slice imported
     assert bad == "[]"
 
 
-def test_entry_points_default_to_cuda():
+@pytest.mark.parametrize("int8", [False, True])
+def test_entry_points_default_to_cuda(int8):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     from egotap_tpu_torch.serving import Predictor
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        Predictor()
+        Predictor(int8=int8)

@@ -10,10 +10,13 @@ nothing of JAX, so it also runs where only PyTorch is installed:
 import pytest
 import torch
 
+from egotap_tpu_torch.models.resnet import BasicBlock
 from egotap_tpu_torch.ops import attention as att
+from egotap_tpu_torch.ops import fused_layer1 as fl
 from egotap_tpu_torch.ops import kernel_errors
 from egotap_tpu_torch.ops import pu_kernel
 from egotap_tpu_torch.ops import upsample as up
+from egotap_tpu_torch.serving import init_weights
 
 pytestmark = pytest.mark.cuda
 
@@ -84,3 +87,92 @@ def test_uncovered_shapes_raise(gen):
     with pytest.raises(NotImplementedError):
         up.upsample2x_align_corners(
             torch.randn(1, 4, 4, 6, generator=gen, device="cuda").bfloat16())
+
+
+def test_unpacked_attention_one_instance(gen):
+    """B*H = 1 and S = 8: one block with a partial query tile."""
+    q, k, v = (torch.randn(1, 1, 8, 128, generator=gen, device="cuda")
+               for _ in range(3))
+    before = att.multihead_attention.launches
+    got = att.multihead_attention(q, k, v)
+    assert att.multihead_attention.launches == before + 1
+    ref = att.attention_packed_plain(q[0], k[0], v[0], 1)[None]
+    _close(got, ref, att.TOL[torch.float32])
+    with pytest.raises(NotImplementedError):              # Dh 256
+        att.multihead_attention(*(torch.randn(1, 1, 8, 256, device="cuda")
+                                  for _ in range(3)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_unpacked_attention_ragged_seq(gen, dtype):
+    """S = 36, not a multiple of 8 (where JAX's Pallas rule falls back to
+    jnp): the card still launches the kernel, and refuses Dh 64 rather
+    than take the plain formula."""
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(2, 3, 36, 128, generator=gen, device="cuda").to(dt)
+               for _ in range(3))
+    before = att.multihead_attention.launches
+    got = att.multihead_attention(q, k, v)
+    assert att.multihead_attention.launches == before + 1
+    ref = att.attention_packed_plain(*(x.reshape(6, 36, 128)
+                                       for x in (q, k, v)), 1)
+    _close(got, ref.reshape(got.shape), att.TOL[dt])
+    with pytest.raises(NotImplementedError):              # Dh 64
+        att.multihead_attention(*(x[..., :64] for x in (q, k, v)))
+    assert att.multihead_attention.launches == before + 1
+
+
+def _packed(n_blocks, seed=0):
+    blocks = torch.nn.Sequential(*(BasicBlock(64, 64, quant=True)
+                                   for _ in range(n_blocks)))
+    init_weights(blocks, torch.Generator().manual_seed(seed))
+    return fl.pack_blocks(blocks.cuda(), 1e-5)
+
+
+def _fused(x, packed):
+    before = fl.fused_layer1_int8.launches
+    got = fl.fused_layer1_int8(x, *packed)
+    assert fl.fused_layer1_int8.launches == before + 1
+    torch.cuda.synchronize()
+    return got
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n_blocks,shape", [
+    (1, (3, 16, 16, 64)),              # one block: 2 convs
+    (2, (2, 8, 8, 64)),                # 8x8: a tile spans 4 images' worth
+    (3, (2, 20, 12, 64)),              # ragged last tile, 6 convs
+])
+def test_fused_layer1_matches_plain(gen, n_blocks, shape, dtype):
+    x = torch.randn(shape, generator=gen, device="cuda").to(
+        getattr(torch, dtype))
+    packed = _packed(n_blocks)
+    _close(_fused(x, packed), fl.fused_layer1_plain(x, *packed),
+           fl.TOL[x.dtype])
+
+
+def test_fused_layer1_zero_and_outlier_images(gen):
+    """An all-zero image takes a_scale = 1e-12/127 and gives relu(bias)
+    chains; an outlier image changes nothing in its neighbours."""
+    packed = _packed(2, seed=1)
+    x = torch.randn(3, 16, 16, 64, generator=gen, device="cuda")
+    x[1] = 0
+    got = _fused(x, packed)
+    _close(got, fl.fused_layer1_plain(x, *packed), fl.TOL[torch.float32])
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got[1], _fused(x[1:2].clone(), packed)[0],
+                               rtol=0, atol=0)
+    y = x.clone()
+    y[2] *= 1e4                                  # the outlier
+    out = _fused(y, packed)
+    torch.testing.assert_close(out[:2], got[:2], rtol=0, atol=0)
+
+
+def test_fused_layer1_refusals(gen):
+    packed = _packed(1)
+    with pytest.raises(NotImplementedError):              # C != 64
+        fl.fused_layer1_int8(torch.randn(1, 8, 8, 32, device="cuda"),
+                             *packed)
+    x = torch.randn(1, 8, 16, 64, device="cuda")[:, :, ::2]
+    with pytest.raises(ValueError):                       # not contiguous
+        fl.fused_layer1_int8(x, *packed)

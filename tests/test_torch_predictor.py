@@ -9,9 +9,11 @@ import torch
 from egotap_tpu.core.config import Config as JaxConfig
 from egotap_tpu.serving import Predictor as JaxPredictor
 from egotap_tpu_torch.compat.from_jax import (heatmap_net_state_dict,
-                                              lifter_state_dict)
+                                              jax_scales, lifter_state_dict)
+from egotap_tpu_torch.ops.quant import Calibrated
 from egotap_tpu_torch.serving import Predictor, serving_config
 from tests.test_torch_compat import heatmap_vars, lifter_vars
+from tests.test_torch_quant import FORCED_TOL, CodeTape
 
 SMALL = dict(num_heatmap=4, num_rot_heatmap=4, ae_hidden_size=32,
              load_size_heatmap=(16, 16))
@@ -36,11 +38,11 @@ def rgb():
         (2, 2, 64, 64, 3)).astype(np.float32)
 
 
-def _jax_predictor(variables, bf16):
+def _jax_predictor(variables, bf16, int8=False):
     cfg = JaxConfig(joint_preset="UnrealEgo", model="egotap_autoencoder",
                     heatmap_type="sin", skel_layer="PU",
                     patched_heatmap_ae=True, **SMALL).derive()
-    return JaxPredictor(cfg, *variables, bf16=bf16, int8=False)
+    return JaxPredictor(cfg, *variables, bf16=bf16, int8=int8)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -93,3 +95,55 @@ def test_seeded_random_weights_are_reproducible(rgb):
     out = a(rgb)
     assert np.isfinite(out).all()
     np.testing.assert_array_equal(out, b(rgb))
+
+
+# The calibrated int8 Predictor against JAX's (f32 compute, both int8
+# flags), calibration included. JAX runs it jitted, where XLA multiplies
+# by 1/127 instead of dividing, so now and then an int8 code lands one
+# step off the port's, and a flip cascades through the lifter to a few %
+# of the pose (tests/test_torch_quant.py). `CodeTape` holds every code
+# array of both calibration batches and of the request against JAX's
+# (read: 49 of 9.4M codes one step off) and goes on with JAX's: the
+# static scales then agree to SCALE_RTOL (read 7.9e-7: max|x| / 127 of
+# inputs that agree to float rounding), and the poses to FORCED_TOL.
+SCALE_RTOL = 1e-5
+
+
+def test_calibrated_int8_matches_jax(weights, rgb, monkeypatch):
+    jax_vars, states = weights
+    calib = [rgb + 0.1 * np.random.default_rng(10 + i).standard_normal(
+        rgb.shape).astype(np.float32) for i in range(2)]
+    tape = CodeTape(monkeypatch)
+    jax_pred = _jax_predictor(jax_vars, bf16=False, int8=True)
+    jax_pred.calibrate(calib)
+    ref = jax_pred(rgb)
+    pred = Predictor(serving_config(**SMALL), *states, bf16=False, int8=True,
+                     device="cpu")
+    assert not pred._has_static_scales()
+    pred.calibrate(calib)
+    assert pred._has_static_scales()
+    for net, variables in zip(pred.nets, jax_pred._vars):
+        want = jax_scales(variables["qparams"])
+        got = {n: m.a_scale.numpy() for n, m in net.named_modules()
+               if isinstance(m, Calibrated) and m.a_scale is not None}
+        assert sorted(got) == sorted(want)
+        for name in want:
+            np.testing.assert_allclose(got[name], want[name],
+                                       rtol=SCALE_RTOL, err_msg=name)
+    got = pred(rgb)
+    tape.check_all_used()
+    assert got.shape == ref.shape == (2, 5, 3) and np.isfinite(got).all()
+    assert np.abs(got - ref).max() <= FORCED_TOL * np.abs(ref).max()
+
+
+def test_int8_follows_the_config_flags(weights):
+    _, states = weights
+    cfg = serving_config(int8_heatmap_inference=True, **SMALL)
+    pred = Predictor(cfg, *states, device="cpu")
+    assert pred.int8 == (True, False)
+    assert Predictor(cfg, *states, int8=False, device="cpu").int8 == (
+        False, False)
+    assert not any(isinstance(m, Calibrated) for m in pred.lifter.modules())
+    pred.calibrate([np.zeros((1, 2, 64, 64, 3), np.float32)])
+    # the lifter, not int8, records nothing; the heatmap nets have scales
+    assert pred._has_static_scales()
