@@ -15,7 +15,9 @@ Exits non-zero, printing no result, when there is no card. Phases:
    version (a bf16 rounding skipped or added, a term dropped, one int8
    scale for the whole batch) must fall outside those limits; median
    CUDA-event times of the kernel, its plain version and a one-call
-   PyTorch yardstick where one exists (never used by the port). Kernels:
+   PyTorch yardstick where one exists (never used by the port); before
+   B's timings, the bf16 attention kernel's registers, spill bytes and
+   shared memory (``ptxas -v``) and the blocks of it one SM holds. Kernels:
    A upsample, B packed attention and B on the unpacked layout, C PU
    chain, D fused int8 layer1 (also timed against the unfused int8
    layer1 it replaces).
@@ -174,6 +176,16 @@ def phase_kernels(torch, F, card):
         rows[("upsample", dt)] = dict(tot, bound_by="bytes")
 
     # ---- B: packed attention at the Grid-ViT's shape
+    res = attention.bf16_kernel_resources()
+    print(f"  attention bf16 kernel: ptxas {res['registers']} registers, "
+          f"{res['spill_store_bytes']} + {res['spill_load_bytes']} bytes "
+          f"spill stores + loads, {res['static_smem_bytes']} bytes static "
+          f"shared memory; a block of {res['threads']} threads takes "
+          f"{res['smem_bytes']} bytes of shared memory and "
+          f"{res['blocks_per_sm']} blocks fit one SM "
+          f"({res['blocks_per_sm'] * res['threads'] // 32} of 64 warps)")
+    if res["blocks_per_sm"] < 1 or res["registers"] != res["runtime_registers"]:
+        raise AssertionError(f"bf16 attention kernel resources: {res}")
     b, s, heads, hd = 32, 576, 8, 128
     for dt in (torch.float32, torch.bfloat16):
         q, k, v = (torch.randn(b, s, heads * hd, generator=g,

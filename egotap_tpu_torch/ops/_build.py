@@ -33,7 +33,8 @@ _VP, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "upsample": {"egotap_upsample2x": [_VP, _VP, _I, _I, _I, _I, _I, _VP]},
     "attention": {"egotap_attention_packed":
-                  [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP]},
+                  [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
+                  "egotap_attention_bf16_occupancy": [_VP]},
     "pu_chain": {"egotap_pu_chain":
                  [_VP] * 11 + [_I, _I, _I, _I, _VP]},
     "fused_layer1": {"egotap_fused_layer1": [_VP] * 7 + [_I] * 5 + [_VP]},
@@ -106,6 +107,15 @@ def library(name: str) -> ctypes.CDLL:
         getattr(lib, fn).restype = ctypes.c_int
     _loaded[name] = lib
     return lib
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (``-Xptxas -v``: registers, spills, static shared
+    memory of each kernel) from the build of ``csrc/<name>.cu``, kept
+    beside its library."""
+    library(name)
+    with open(_target(name)[:-3] + ".log") as f:
+        return f.read()
 
 
 def check(err: int, what: str) -> None:

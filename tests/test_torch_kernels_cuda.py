@@ -35,16 +35,71 @@ def _close(got, ref, tol):
     assert max_rel <= tol[0] and rms_rel <= tol[1], (max_rel, rms_rel, tol)
 
 
+# sequence lengths around the kernels' tiles: 64 query rows a block (16 a
+# warp in bf16), 64 keys a chunk; 576 is the Grid-ViT's, 640 the most the
+# f32 kernel takes
+SEQ_LENS = [1, 36, 63, 64, 65, 100, 127, 129, 576, 640]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("s", [36, 100])            # a partial query tile
-def test_attention_matches_plain(gen, s, dtype):
+@pytest.mark.parametrize("s", SEQ_LENS)
+@pytest.mark.parametrize("heads", [1, 8])
+def test_attention_matches_plain(gen, heads, s, dtype):
     dt = getattr(torch, dtype)
-    q, k, v = (torch.randn(2, s, 1024, generator=gen, device="cuda").to(dt)
-               for _ in range(3))
+    b = 2 if s == 100 else 1
+    q, k, v = (torch.randn(b, s, heads * 128, generator=gen,
+                           device="cuda").to(dt) for _ in range(3))
     before = att.multihead_attention_packed.launches
-    got = att.multihead_attention_packed(q, k, v, 8)
+    got = att.multihead_attention_packed(q, k, v, heads)
     assert att.multihead_attention_packed.launches == before + 1
-    _close(got, att.attention_packed_plain(q, k, v, 8), att.TOL[dt])
+    _close(got, att.attention_packed_plain(q, k, v, heads), att.TOL[dt])
+
+
+@pytest.mark.parametrize("b,s,heads", [(1, 641, 8), (2, 1000, 1),
+                                       (1, 2048, 2)])
+def test_attention_bf16_long_seq(gen, b, s, heads):
+    """The bf16 kernel keeps no score tile, so S has no limit; the f32
+    kernel's stays at `MAX_SEQ_F32` and a longer f32 input raises."""
+    q, k, v = (torch.randn(b, s, heads * 128, generator=gen,
+                           device="cuda").bfloat16() for _ in range(3))
+    before = att.multihead_attention_packed.launches
+    got = att.multihead_attention_packed(q, k, v, heads)
+    assert att.multihead_attention_packed.launches == before + 1
+    _close(got, att.attention_packed_plain(q, k, v, heads),
+           att.TOL[torch.bfloat16])
+    assert s > att.MAX_SEQ_F32
+    with pytest.raises(NotImplementedError):
+        att.multihead_attention_packed(q.float(), k.float(), v.float(), heads)
+    with pytest.raises(NotImplementedError):
+        att.multihead_attention(*(x.float().view(b, s, heads, 128)
+                                  .transpose(1, 2) for x in (q, k, v)))
+    assert att.multihead_attention_packed.launches == before + 1
+
+
+def test_attention_bf16_masks_ragged_tiles(gen):
+    """Rows and keys past S are never read as data: q, k and v are the
+    first S rows of buffers whose tails hold NaNs (for one instance such a
+    view is contiguous, so the wrapper passes it on as it is)."""
+    s, heads = 100, 8
+    big = torch.full((3, 1, 128, heads * 128), float("nan"), device="cuda",
+                     dtype=torch.bfloat16)
+    big[:, :, :s] = torch.randn(3, 1, s, heads * 128, generator=gen,
+                                device="cuda").bfloat16()
+    q, k, v = (x[:, :s] for x in big)
+    assert q.is_contiguous() and v.data_ptr() == big[2].data_ptr()
+    got = att.multihead_attention_packed(q, k, v, heads)
+    assert torch.isfinite(got).all()
+    _close(got, att.attention_packed_plain(q, k, v, heads),
+           att.TOL[torch.bfloat16])
+
+
+def test_attention_bf16_kernel_resources(gen):
+    """The build log and the runtime agree on the kernel's registers, and
+    at least three of its blocks fit one SM (the design's occupancy)."""
+    res = att.bf16_kernel_resources()
+    assert res["registers"] == res["runtime_registers"] > 0
+    assert res["blocks_per_sm"] >= 3, res
+    assert res["smem_bytes"] <= 227 * 1024 // 3
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -84,6 +139,10 @@ def test_uncovered_shapes_raise(gen):
     q = torch.randn(1, 16, 4 * 64, generator=gen, device="cuda")
     with pytest.raises(NotImplementedError):
         att.multihead_attention_packed(q, q, q, 4)          # head_dim 64
+    long = torch.randn(1, att.MAX_SEQ_F32 + 1, 128, generator=gen,
+                       device="cuda")
+    with pytest.raises(NotImplementedError):
+        att.multihead_attention_packed(long, long, long, 1)  # f32, S > 640
     with pytest.raises(NotImplementedError):
         up.upsample2x_align_corners(
             torch.randn(1, 4, 4, 6, generator=gen, device="cuda").bfloat16())
@@ -104,17 +163,20 @@ def test_unpacked_attention_one_instance(gen):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_unpacked_attention_ragged_seq(gen, dtype):
-    """S = 36, not a multiple of 8 (where JAX's Pallas rule falls back to
-    jnp): the card still launches the kernel, and refuses Dh 64 rather
+@pytest.mark.parametrize("s", SEQ_LENS)
+@pytest.mark.parametrize("heads", [1, 8])
+def test_unpacked_attention_ragged_seq(gen, heads, s, dtype):
+    """Any S, also not a multiple of 8 (where JAX's Pallas rule falls back
+    to jnp): the card still launches the kernel, and refuses Dh 64 rather
     than take the plain formula."""
     dt = getattr(torch, dtype)
-    q, k, v = (torch.randn(2, 3, 36, 128, generator=gen, device="cuda").to(dt)
-               for _ in range(3))
+    b = 2 if s == 36 else 1
+    q, k, v = (torch.randn(b, heads, s, 128, generator=gen,
+                           device="cuda").to(dt) for _ in range(3))
     before = att.multihead_attention.launches
     got = att.multihead_attention(q, k, v)
     assert att.multihead_attention.launches == before + 1
-    ref = att.attention_packed_plain(*(x.reshape(6, 36, 128)
+    ref = att.attention_packed_plain(*(x.reshape(b * heads, s, 128)
                                        for x in (q, k, v)), 1)
     _close(got, ref.reshape(got.shape), att.TOL[dt])
     with pytest.raises(NotImplementedError):              # Dh 64
