@@ -12,12 +12,13 @@ Exits non-zero, printing no result, when there is no card. Phases:
 2. Kernel vs plain version on the card, at the serving forward's shapes,
    in f32 and bf16: max and rms error relative to the plain output,
    each within the kernel module's ``TOL``; faulty variants of the plain
-   version (a bf16 rounding skipped or added, a term dropped, one int8
-   scale for the whole batch) must fall outside those limits; median
-   CUDA-event times of the kernel, its plain version and a one-call
-   PyTorch yardstick where one exists (never used by the port); before
-   B's timings, the bf16 attention kernel's registers, spill bytes and
-   shared memory (``ptxas -v``) and the blocks of it one SM holds. Kernels:
+   version (a bf16 rounding skipped or added, f32 operands rounded to
+   TF32, the last key chunk or a term dropped, one int8 scale for the
+   whole batch) must fall outside those limits; median CUDA-event times
+   of the kernel, its plain version and a one-call PyTorch yardstick
+   where one exists (never used by the port); before B's timings, each
+   attention kernel's registers, spill bytes and shared memory (``ptxas
+   -v``) and the blocks of it one SM holds. Kernels:
    A upsample, B packed attention and B on the unpacked layout, C PU
    chain, D fused int8 layer1 (also timed against the unfused int8
    layer1 it replaces).
@@ -35,7 +36,8 @@ Exits non-zero, printing no result, when there is no card. Phases:
 4. Entry points off the Predictor's path: the int8 ResNet encoder with
    the fused layer1 (kernel D once per forward) on (64, 256, 256, 3)
    bf16 against the unfused int8 encoder, and one call of the unpacked
-   attention wrapper at the Grid-ViT's (32, 8, 576, 128) in bf16.
+   attention wrapper at the Grid-ViT's (32, 8, 576, 128) in bf16 and
+   in f32.
 5. One JSON line with every kernel's numbers, then the result line.
 """
 
@@ -49,6 +51,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_TENSOR_FLOPS = 989e12         # dense bf16 tensor-core peak
 INT8_TENSOR_OPS = 1979e12          # dense int8 tensor-core peak
 F32_FLOPS = 67e12                  # f32 outside the tensor cores
+TF32_TENSOR_FLOPS = 494.7e12       # dense TF32 tensor-core peak
 ITERS = 20
 BF16_POSE_TOL = 5e-2               # bf16 vs f32 pose, relative to max|f32|
 # int8 (static scales) vs bf16 pose of the same weights, relative to
@@ -120,6 +123,77 @@ def control(name, faulty, ref, tol, failures):
         failures.append(f"control {name}")
 
 
+def tf32(torch, x):
+    """x rounded to TF32 (10 mantissa bits, to nearest, ties away from
+    zero), as ``cvt.rna.tf32.f32`` rounds it."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def attention_variant(torch, q, k, v, heads, rnd=None, keys=None):
+    """The plain f32 attention formula on (B, S, H*Dh) with ``rnd``
+    applied to both products' operands, over the first ``keys`` keys:
+    the faulty f32 variants the kernel's limits must reject."""
+    b, s, d = q.shape
+    hd = d // heads
+    rnd = rnd or (lambda x: x)
+
+    def split(x):
+        return x.reshape(b, -1, heads, hd).transpose(1, 2)
+    scale = torch.tensor(hd ** -0.5, dtype=torch.float32, device=q.device)
+    scores = (rnd(split(q)) @ rnd(split(k[:, :keys])).transpose(-1, -2)) * scale
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    out = rnd(p) @ rnd(split(v[:, :keys]))
+    return out.transpose(1, 2).reshape(b, s, d)
+
+
+def attention_controls(torch, q, k, v, heads, ref, failures):
+    """Kernel B's f32 controls: one TF32 rounding of the operands (what a
+    3xTF32 product that lost its small parts computes), and the last key
+    chunk (64 keys) left out of the softmax and of p v."""
+    from egotap_tpu_torch.ops import attention
+    tol = attention.TOL[torch.float32]
+    control("operands rounded to TF32 once", attention_variant(
+        torch, q, k, v, heads, rnd=lambda x: tf32(torch, x)), ref, tol,
+        failures)
+    last = (q.shape[1] - 1) // 64 * 64
+    control("last key chunk dropped from the softmax", attention_variant(
+        torch, q, k, v, heads, keys=last), ref, tol, failures)
+
+
+def yardstick(torch, fn, ref):
+    """Print which kernels a library call runs and how close its output
+    comes to the plain version (no limit: the port never calls it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from egotap_tpu_torch.ops import kernel_errors
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA})
+    _, max_rel, rms_rel = kernel_errors(out, ref)
+    print(f"    yardstick runs {names}: max_rel_err={max_rel:.3e} "
+          f"rms_rel_err={rms_rel:.3e}")
+
+
+def attention_bound(torch, q):
+    """(bound ms, bound_by) of one kernel B launch on (B, S, H*Dh): bytes
+    against operations at the dtype's peak; f32 runs 3xTF32, three TF32
+    products for each (its bound on the CUDA cores is printed beside)."""
+    flops = 4 * q.shape[0] * q.shape[1] ** 2 * q.shape[2]
+    t_bytes = 4 * q.numel() * q.element_size() / HBM_BYTES_PER_S
+    if q.dtype == torch.bfloat16:
+        t_ops, by = flops / BF16_TENSOR_FLOPS, "operations"
+    else:
+        t_ops, by = 3 * flops / TF32_TENSOR_FLOPS, "operations (3xTF32)"
+        print(f"    f32 bounds: 3xTF32 {1e3 * t_ops:.4f} ms, CUDA cores "
+              f"{1e3 * flops / F32_FLOPS:.4f} ms, bytes "
+              f"{1e3 * t_bytes:.4f} ms")
+    return 1e3 * max(t_ops, t_bytes), by if t_ops >= t_bytes else "bytes"
+
+
 def phase_kernels(torch, F, card):
     from egotap_tpu_torch.models.layers import BN_EPS
     from egotap_tpu_torch.models.resnet import BasicBlock
@@ -176,16 +250,18 @@ def phase_kernels(torch, F, card):
         rows[("upsample", dt)] = dict(tot, bound_by="bytes")
 
     # ---- B: packed attention at the Grid-ViT's shape
-    res = attention.bf16_kernel_resources()
-    print(f"  attention bf16 kernel: ptxas {res['registers']} registers, "
-          f"{res['spill_store_bytes']} + {res['spill_load_bytes']} bytes "
-          f"spill stores + loads, {res['static_smem_bytes']} bytes static "
-          f"shared memory; a block of {res['threads']} threads takes "
-          f"{res['smem_bytes']} bytes of shared memory and "
-          f"{res['blocks_per_sm']} blocks fit one SM "
-          f"({res['blocks_per_sm'] * res['threads'] // 32} of 64 warps)")
-    if res["blocks_per_sm"] < 1 or res["registers"] != res["runtime_registers"]:
-        raise AssertionError(f"bf16 attention kernel resources: {res}")
+    for dt in (torch.float32, torch.bfloat16):
+        res = attention.kernel_resources(dt)
+        print(f"  attention {dt} kernel: ptxas {res['registers']} registers, "
+              f"{res['spill_store_bytes']} + {res['spill_load_bytes']} bytes "
+              f"spill stores + loads, {res['static_smem_bytes']} bytes static "
+              f"shared memory; a block of {res['threads']} threads takes "
+              f"{res['smem_bytes']} bytes of shared memory and "
+              f"{res['blocks_per_sm']} blocks fit one SM "
+              f"({res['blocks_per_sm'] * res['threads'] // 32} of 64 warps)")
+        if (res["blocks_per_sm"] < 1
+                or res["registers"] != res["runtime_registers"]):
+            raise AssertionError(f"{dt} attention kernel resources: {res}")
     b, s, heads, hd = 32, 576, 8, 128
     for dt in (torch.float32, torch.bfloat16):
         q, k, v = (torch.randn(b, s, heads * hd, generator=g,
@@ -199,21 +275,21 @@ def phase_kernels(torch, F, card):
                     attention_packed_plain(q.float(), k.float(), v.float(),
                                            heads).to(dt),
                     ref, attention.TOL[dt], failures)
+        else:
+            attention_controls(torch, q, k, v, heads, ref, failures)
         split = [x.view(b, s, heads, hd).transpose(1, 2) for x in (q, k, v)]
         ms = time_ms(torch, lambda: multihead_attention_packed(q, k, v, heads))
         pms = time_ms(torch, lambda: attention_packed_plain(q, k, v, heads))
         lms = time_ms(torch, lambda: F.scaled_dot_product_attention(*split))
-        flops = 4 * b * heads * s * s * hd
-        nbytes = 4 * q.numel() * q.element_size()
-        peak = BF16_TENSOR_FLOPS if dt == torch.bfloat16 else F32_FLOPS
-        t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
-        bound = 1e3 * max(t_ops, t_bytes)
+        if dt == torch.float32:
+            yardstick(torch, lambda: F.scaled_dot_product_attention(*split)
+                      .transpose(1, 2).reshape(q.shape), ref)
+        bound, by = attention_bound(torch, q)
         print(f"    kernel {ms:.4f} ms, plain {pms:.4f} ms, SDPA {lms:.4f} ms, "
               f"bound {bound:.4f} ms [{card}]")
         rows[("attention", dt)] = dict(
             ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bound,
-            max_abs_err=err,
-            bound_by="operations" if t_ops >= t_bytes else "bytes")
+            max_abs_err=err, bound_by=by)
 
     # ---- C: PU chain at the lifter's shape
     b, J, H = 32, 15, 512
@@ -275,20 +351,19 @@ def phase_kernels(torch, F, card):
             control("p left in f32 (not rounded to bf16 before p v)",
                     plain_unpacked(q.float(), k.float(), v.float()).to(dt),
                     ref, attention.TOL[dt], failures)
+        else:
+            flat = [x.reshape(b * heads, s, hd) for x in (q, k, v)]
+            attention_controls(torch, *flat, 1, ref.reshape(b * heads, s, hd),
+                               failures)
         ms = time_ms(torch, lambda: multihead_attention(q, k, v))
         pms = time_ms(torch, lambda: plain_unpacked(q, k, v))
         lms = time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v))
-        flops = 4 * b * heads * s * s * hd
-        nbytes = 4 * q.numel() * q.element_size()
-        peak = BF16_TENSOR_FLOPS if dt == torch.bfloat16 else F32_FLOPS
-        t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
-        bound = 1e3 * max(t_ops, t_bytes)
+        bound, by = attention_bound(torch, q.reshape(b * heads, s, hd))
         print(f"    kernel {ms:.4f} ms, plain {pms:.4f} ms, SDPA {lms:.4f} ms, "
               f"bound {bound:.4f} ms [{card}]")
         rows[("attention_unpacked", dt)] = dict(
             ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bound,
-            max_abs_err=err,
-            bound_by="operations" if t_ops >= t_bytes else "bytes")
+            max_abs_err=err, bound_by=by)
 
     # ---- D: fused int8 layer1 at one net's shape (batch 32 x 2 views);
     # image i scaled by 1 + i/8, so that the per-image scales differ
@@ -545,7 +620,7 @@ def phase_full_path(torch, card):
             raise AssertionError(f"int8 card and CPU {name}s disagree")
     del pred
     torch.cuda.empty_cache()
-    return launches["int8"]
+    return launches
 
 
 def phase_entry_points(torch, card):
@@ -593,27 +668,29 @@ def phase_entry_points(torch, card):
     del fused, unfused, encs
     torch.cuda.empty_cache()
 
-    # the unpacked wrapper, one call at the Grid-ViT's shape
+    # the unpacked wrapper, one call at the Grid-ViT's shape in each dtype
     g = torch.Generator(device="cuda").manual_seed(5)
-    q, k, v = (torch.randn(32, 8, 576, 128, generator=g, device="cuda"
-                           ).bfloat16() for _ in range(3))
-    reset_counts()
-    got = multihead_attention(q, k, v)
-    counts = read_counts()
-    print(f"  unpacked attention, one call of {tuple(q.shape)} bf16: "
-          f"launches {counts}")
-    if counts != dict(PER_FORWARD, upsample=0, attention=0, pu_chain=0,
-                      attention_unpacked=1):
-        raise AssertionError("the unpacked wrapper must launch kernel B once")
-    flat = [x.reshape(256, 576, 128) for x in (q, k, v)]
-    failures = []
-    check("unpacked attention output", got, attention_packed_plain(
-        *flat, heads=1).reshape(got.shape), attention.TOL[torch.bfloat16],
-        failures)
-    if failures:
-        raise AssertionError("the unpacked wrapper's output is wrong")
-    return {"fused_layer1": enc_counts["fused_layer1"],
-            "attention_unpacked": counts["attention_unpacked"]}
+    unpacked = {}
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.randn(32, 8, 576, 128, generator=g, device="cuda"
+                               ).to(dt) for _ in range(3))
+        reset_counts()
+        got = multihead_attention(q, k, v)
+        counts = read_counts()
+        print(f"  unpacked attention, one call of {tuple(q.shape)} {dt}: "
+              f"launches {counts}")
+        if counts != dict(PER_FORWARD, upsample=0, attention=0, pu_chain=0,
+                          attention_unpacked=1):
+            raise AssertionError("the unpacked wrapper must launch kernel B "
+                                 "once")
+        flat = [x.reshape(256, 576, 128) for x in (q, k, v)]
+        failures = []
+        check(f"unpacked attention output {dt}", got, attention_packed_plain(
+            *flat, heads=1).reshape(got.shape), attention.TOL[dt], failures)
+        if failures:
+            raise AssertionError("the unpacked wrapper's output is wrong")
+        unpacked[dt] = counts["attention_unpacked"]
+    return enc_counts["fused_layer1"], unpacked
 
 
 def main() -> int:
@@ -648,11 +725,19 @@ def main() -> int:
     rows = phase_kernels(torch, F, card)
 
     print("phase 3: full serving path, batch 32, bf16, f32 and int8")
-    launches = phase_full_path(torch, card)
+    served = phase_full_path(torch, card)
 
     print("phase 4: entry points off the Predictor's path")
-    launches.update(phase_entry_points(torch, card))
+    fused, unpacked = phase_entry_points(torch, card)
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s")
+    # launches of each row: the int8 forward's (bf16 compute) for the bf16
+    # rows, the f32 forward's for the f32 attention row, and the entry
+    # points' own calls for kernel D and the unpacked wrapper
+    launches = {(n, torch.bfloat16): c for n, c in served["int8"].items()}
+    launches[("attention", torch.float32)] = served["f32"]["attention"]
+    launches[("fused_layer1", torch.bfloat16)] = fused
+    for dt, c in unpacked.items():
+        launches[("attention_unpacked", dt)] = c
 
     meta = {
         "upsample": ("upsample2x_align_corners", "cuda",
@@ -671,15 +756,16 @@ def main() -> int:
                          "egotap_tpu/ops/fused_layer1.py:121"),
     }
     kernels = []
-    for key, (name, route, source, replaces) in meta.items():
-        r = rows[(key, torch.bfloat16)]
+    for (key, dt), count in launches.items():
+        name, route, source, replaces = meta[key]
+        r = rows[(key, dt)]
         kernels.append({
             "name": name, "route": route, "source": source,
-            "replaces": replaces, "launches": launches[key],
+            "replaces": replaces, "launches": count,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "dtype": "bfloat16"})
+            "dtype": str(dt).removeprefix("torch.")})
         if "unfused_ms" in r:
             kernels[-1]["unfused_ms"] = r["unfused_ms"]
     print(json.dumps({"kernels": kernels}))

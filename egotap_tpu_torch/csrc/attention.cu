@@ -4,17 +4,25 @@
 // `_attention_pallas_packed` (per (batch, head): softmax(q k^T / sqrt(Dh)) v
 // with the head taken as a column block of the packed last dim).
 //
-// Numerics follow the TPU kernel, not flash-style online rescaling:
-// scores are f32 dot products times the scale; each row's max and sum
-// are exact over all S keys; p = exp(s - max) / sum is normalised BEFORE
-// it is rounded to v's dtype; p v accumulates in f32; the output is
-// rounded once to the input dtype.
+// Numerics follow the TPU kernel: scores are f32 dot products times the
+// scale; p = exp(s - max) / sum with each row's max and sum over all S
+// keys in f32; p v accumulates in f32; the output is rounded once to the
+// input dtype. In bf16, p is normalised BEFORE it is rounded to bf16, so
+// a row's max and sum must be known before any of its p: two passes over
+// the keys. In f32 nothing is rounded between the softmax and p v, so the
+// one-pass online form (flash-style: a running max m and sum l per row,
+// the f32 context scaled by exp(m_old - m_new) when the max moves and
+// divided by l once at the end) is the same function up to f32 rounding:
+// exp(a) exp(b) for exp(a + b), and one division moved after the sum, a
+// few ulps where the limit allows hundreds.
 //
 // Bound on the H100: at the Grid-ViT's shapes (B=32, S=576, H=8, Dh=128,
 // bf16) one launch is 43.5 GFLOP and 151 MB, so the tensor-core bound
-// (~44 us) and the memory bound (~45 us) are about equal. In f32 the
-// products cannot use the tensor cores without TF32 rounding, so f32 is
-// bound by the 67 TFLOP/s of the CUDA cores (~650 us).
+// (~44 us) and the memory bound (~45 us) are about equal. In f32 one TF32
+// product rounds each operand to 11 bits (~4e-4 off, far outside the
+// kernel's limit), so each f32 product is three TF32 products (3xTF32,
+// below): 130.5 GFLOP at the 495 TFLOP/s of dense TF32, ~264 us (on the
+// CUDA cores the same 43.5 GFLOP at 67 TFLOP/s take ~650 us).
 //
 // Design: one block per (batch, head, 64-query tile), 2304 blocks at the
 // main-path shape. The block indexes the packed layout directly (row
@@ -47,10 +55,26 @@
 //    and nothing but wgmma may then write an accumulator while a wgmma is
 //    in flight, or ptxas serializes them all: its note C7515), TMA tile
 //    loads, larger query tiles with warpgroups out of step. No limit on S.
-//  * f32: products on the CUDA cores from register micro-tiles (4x4 for
-//    q k^T, 8x4 for p v) fed from padded shared memory (row pitch Dh+1).
-//    The whole 64 x S f32 score tile stays in shared memory (147 KB at
-//    S=576), which limits S to 640.
+//  * f32: both products on the tensor cores in 3xTF32 (CUTLASS's
+//    OpMultiplyAddFastF32): each f32 operand x is big + small, big x
+//    rounded to TF32 and small = x - big, and a product is small.big +
+//    big.small + big.big with mma.sync m16n8k8 (f32 accumulate): about 22
+//    of f32's 24 bits. One pass over the keys in the online form above, no
+//    score tile: 4 warps a block, each 16 query rows with a 16 x 64 score
+//    chunk and its 16 x 128 context in registers; p goes from the score C
+//    fragment to the p v A fragment with no shuffle (keys 2t and 2t + 1
+//    as k indices t and t + 4). The tensor cores' f32 sums do not round to
+//    nearest, and a chain of them drifts with its length (a context summed
+//    on through all keys left the kernel's limit from S = 576 on), so each
+//    16-d step pair of q k^T and each 64-key chunk of p v sums into fresh
+//    accumulators that the CUDA cores add on. Q, one K and
+//    one V tile (64 x 128 f32) in 96 KB, 2 blocks an SM; K and V chunks
+//    arrive by 16-byte cp.async, each under the other product; tile rows
+//    are unpadded with permuted 16-byte chunks, so every 128-bit fragment
+//    load is free of bank conflicts. Operands are split as they are
+//    loaded: every warp splits the whole K and V tiles (splitting them
+//    once per block needs two more tile planes: 1 block an SM).
+//    Exp and division are expf and IEEE. No limit on S.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -62,130 +86,6 @@ namespace {
 constexpr int DH = 128;       // head dim
 constexpr int QT = 64;        // query rows per block
 constexpr int KC = 64;        // keys per shared-memory chunk
-constexpr int THREADS = 256;
-constexpr int MAX_SEQ = 640;  // the f32 wrapper's limit (score tile in smem)
-constexpr int SMEM_LIMIT = 232448;
-
-__host__ __device__ __forceinline__ int round_up(int x, int m) { return (x + m - 1) / m * m; }
-
-// ---------------------------------------------------------------- f32 path
-
-constexpr int PITCH = DH + 1; // padded row pitch (floats)
-
-__device__ void load_rows_f32(float* dst, const float* __restrict__ src, int row0,
-                              int nrows, int s, int ld) {
-  // dst[r][d] = src[(row0 + r) * ld + d] for valid rows, 0 past the end
-  for (int i = threadIdx.x; i < nrows * DH; i += THREADS) {
-    const int r = i / DH, d = i % DH;
-    const int row = row0 + r;
-    dst[r * PITCH + d] = row < s ? src[(int64_t)row * ld + d] : 0.f;
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ out,
-                     int s, int heads, float scale) {
-  extern __shared__ float smem[];
-  float* sQ = smem;                       // QT x PITCH
-  float* sKV = sQ + QT * PITCH;           // KC x PITCH
-  float* sS = sKV + KC * PITCH;           // QT x ld_s scores / probabilities
-  const int ld_s = round_up(s, KC);
-
-  const int q0 = blockIdx.x * QT;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int ld = heads * DH;
-  const int64_t base = (int64_t)b * s * ld + (int64_t)h * DH;
-  const int tid = threadIdx.x;
-
-  load_rows_f32(sQ, q + base, q0, QT, s, ld);
-
-  // ---- scores: sS[r][key] = (q_r . k_key) * scale
-  {
-    const int ty = tid / 16, tx = tid % 16;   // rows 4ty.., cols tx + 16c
-    for (int k0 = 0; k0 < s; k0 += KC) {
-      __syncthreads();                        // sKV free, sQ loaded
-      load_rows_f32(sKV, k + base, k0, KC, s, ld);
-      __syncthreads();
-      float acc[4][4] = {};
-#pragma unroll 4
-      for (int d = 0; d < DH; ++d) {
-        float a[4], bb[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = sQ[(4 * ty + i) * PITCH + d];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) bb[c] = sKV[(tx + 16 * c) * PITCH + d];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(a[i], bb[c], acc[i][c]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int key = k0 + tx + 16 * c;
-          if (key < s) sS[(4 * ty + i) * ld_s + key] = acc[i][c] * scale;
-        }
-    }
-  }
-  __syncthreads();
-
-  // ---- exact softmax per row: one warp per row, rows strided by 8
-  {
-    const int warp = tid / 32, lane = tid % 32;
-    for (int r = warp; r < QT; r += THREADS / 32) {
-      if (q0 + r >= s) break;
-      float* row = sS + r * ld_s;
-      float m = __int_as_float(0xff800000);  // -inf
-      for (int j = lane; j < s; j += 32) m = fmaxf(m, row[j]);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-      float sum = 0.f;
-      for (int j = lane; j < s; j += 32) {
-        const float e = expf(row[j] - m);
-        row[j] = e;
-        sum += e;
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      for (int j = lane; j < s; j += 32) row[j] = row[j] / sum;
-    }
-  }
-
-  // ---- context: out[r][:] = sum_key p[r][key] * v[key][:]
-  const int ty = tid / 32, tx = tid % 32;        // rows 8ty.., cols tx + 32c
-  float acc[8][4] = {};
-  for (int k0 = 0; k0 < s; k0 += KC) {
-    __syncthreads();
-    load_rows_f32(sKV, v + base, k0, KC, s, ld);
-    __syncthreads();
-    const int kn = min(KC, s - k0);
-    for (int kk = 0; kk < kn; ++kk) {
-      float p[8], vv[4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) p[i] = sS[(8 * ty + i) * ld_s + k0 + kk];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) vv[c] = sKV[kk * PITCH + tx + 32 * c];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(p[i], vv[c], acc[i][c]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = q0 + 8 * ty + i;
-    if (row >= s) continue;
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      out[base + (int64_t)row * ld + tx + 32 * c] = acc[i][c];
-  }
-}
-
-size_t smem_bytes_f32(int s) {
-  return sizeof(float) * ((size_t)(QT + KC) * PITCH + (size_t)QT * round_up(s, KC));
-}
 
 // --------------------------------------------------------------- bf16 path
 
@@ -451,6 +351,246 @@ attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------- f32 path
+
+constexpr int F_THREADS = 128;                  // 4 warps, 16 query rows each
+constexpr int F_ROW = DH / 4;                   // float4 chunks in a 512-byte tile row
+constexpr int F_TILE = KC * F_ROW;              // float4s in a 64 x 128 f32 tile (32 KB)
+constexpr int F_SMEM = 16 * 3 * F_TILE;         // Q, K and V tiles: 96 KB
+
+// How a tile's row r permutes its 16-byte chunks (chunk c at c ^ f(r)), so
+// that every 128-bit fragment load below is free of bank conflicts: Q and
+// K f = 4 (r % 2) (rows g of a quad pair read chunks 4kp + t), V f = 2 ((r
+// / 2) % 4) (rows 2t, 2t + 1 read chunks 8mq + g)
+enum { F_SWZ_QK, F_SWZ_V };
+
+// rows row0 .. row0 + 63 of src (row stride ld floats) into the tile at
+// dst by 16-byte cp.async (not committed); rows at or past s are zeros.
+// Thread i copies chunk i % 32 of rows i / 32 + 4n.
+template <int SWZ>
+__device__ __forceinline__ void load_tile_f32(uint32_t dst, const float* src, int row0,
+                                              int s, int ld) {
+  const int c = threadIdx.x % 32, r0 = threadIdx.x / 32;
+#pragma unroll
+  for (int n = 0; n < KC / 4; ++n) {
+    const int r = r0 + 4 * n;
+    const int f = SWZ == F_SWZ_QK ? 4 * (r % 2) : 2 * ((r / 2) % 4);
+    const bool in = row0 + r < s;
+    cp_async16(dst + 16 * (r * F_ROW + (c ^ f)),
+               in ? src + (int64_t)(row0 + r) * ld + 4 * c : src, in ? 16 : 0);
+  }
+}
+
+// x = big + small for 3xTF32, as CUTLASS's OpMultiplyAddFastF32 splits it:
+// big is x rounded to TF32 (to nearest, ties away from zero: the bits of
+// cvt.rna.tf32.f32), small = x - big (exact) goes in unrounded, and the
+// tensor cores read its top 19 bits
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// d += a b on the tensor cores: m16n8k8, TF32 operands, f32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b in 3xTF32, small terms first: small.big + big.small + big.big
+// (the small.small term is below f32's precision)
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4], float b0, float b1) {
+  uint32_t bb0, bs0, bb1, bs1;
+  split_tf32(b0, bb0, bs0);
+  split_tf32(b1, bb1, bs1);
+  mma_tf32(d, as, bb0, bb1);
+  mma_tf32(d, ab, bs0, bs1);
+  mma_tf32(d, ab, bb0, bb1);
+}
+
+__global__ void __launch_bounds__(F_THREADS, 2)
+attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
+                     int s, int heads, float scale) {
+  extern __shared__ float4 smem_f32[];
+  const float4* const tQ = smem_f32;
+  const float4* const tK = tQ + F_TILE;
+  const float4* const tV = tK + F_TILE;
+  const uint32_t aQ = (uint32_t)__cvta_generic_to_shared(tQ);
+  const uint32_t aK = aQ + 16 * F_TILE, aV = aK + 16 * F_TILE;
+
+  const int q0 = blockIdx.x * QT;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int ld = heads * DH;
+  const int64_t base = (int64_t)b * s * ld + (int64_t)h * DH;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;                // mma fragment coords
+  const int nc = (s + KC - 1) / KC;
+  const int fqk = 4 * (g % 2), fv = 2 * t;             // this thread's permutations
+
+  load_tile_f32<F_SWZ_QK>(aQ, q + base, q0, s, ld);
+  load_tile_f32<F_SWZ_QK>(aK, k + base, 0, s, ld);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+  // o: 16 n-tiles of 8 Dh columns; tile n, column j is Dh column
+  // 32 (n / 4) + 4j + n % 4, so that one 128-bit load of a V row gives the
+  // B fragments of 4 tiles
+  float o[16][4], m[2], l[2];
+#pragma unroll
+  for (int n = 0; n < 16; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  m[0] = m[1] = __int_as_float(0xff800000);            // -inf
+  l[0] = l[1] = 0.f;
+
+  for (int c = 0; c < nc; ++c) {
+    const int key0 = KC * c;
+    // K chunk c landed; every warp is done with V chunk c - 1, so V chunk
+    // c may come in under the scores
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+    load_tile_f32<F_SWZ_V>(aV, v + base, key0, s, ld);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+    // ---- scores: rows 16 warp + g (+ 8) against keys 8n + 2t (+ 1). The
+    // 16 d of step pair kp are ordered so that k index t of step 2kp + x is
+    // d = 16kp + 4t + 2x and k index t + 4 is the next d: one 128-bit load
+    // of a Q or K row gives a fragment pair. Each pair sums into fresh
+    // accumulators, added to the scores by the CUDA cores: the tensor
+    // cores' f32 sums do not round to nearest, and a chain of them drifts
+    float sc[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll 2
+    for (int kp = 0; kp < DH / 16; ++kp) {
+      const float4 qa = tQ[(16 * warp + g) * F_ROW + ((4 * kp + t) ^ fqk)];
+      const float4 qb = tQ[(16 * warp + g + 8) * F_ROW + ((4 * kp + t) ^ fqk)];
+      uint32_t ab[2][4], as[2][4];
+      split_tf32(qa.x, ab[0][0], as[0][0]);
+      split_tf32(qb.x, ab[0][1], as[0][1]);
+      split_tf32(qa.y, ab[0][2], as[0][2]);
+      split_tf32(qb.y, ab[0][3], as[0][3]);
+      split_tf32(qa.z, ab[1][0], as[1][0]);
+      split_tf32(qb.z, ab[1][1], as[1][1]);
+      split_tf32(qa.w, ab[1][2], as[1][2]);
+      split_tf32(qb.w, ab[1][3], as[1][3]);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float4 kb = tK[(8 * n + g) * F_ROW + ((4 * kp + t) ^ fqk)];
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_3xtf32(part, ab[0], as[0], kb.x, kb.y);
+        mma_3xtf32(part, ab[1], as[1], kb.z, kb.w);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] += part[e];
+      }
+    }
+
+    // ---- online softmax on rows g (hi = 0) and g + 8 (hi = 1): scale,
+    // mask keys at or past s, move the max, p = exp(s - max) unnormalised
+    float alpha[2];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] *= scale;
+    if (key0 + KC > s) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (key0 + 8 * n + 2 * t + (e & 1) >= s) sc[n][e] = __int_as_float(0xff800000);
+    }
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      float cm = sc[0][2 * hi];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) cm = fmaxf(cm, fmaxf(sc[n][2 * hi], sc[n][2 * hi + 1]));
+      cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, 1));
+      cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, 2));
+      const float mn = fmaxf(m[hi], cm);       // finite: key0 < s is never masked
+      alpha[hi] = expf(m[hi] - mn);            // 0 on the first chunk
+      m[hi] = mn;
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        sc[n][2 * hi] = expf(sc[n][2 * hi] - mn);
+        sc[n][2 * hi + 1] = expf(sc[n][2 * hi + 1] - mn);
+        sum += sc[n][2 * hi] + sc[n][2 * hi + 1];
+      }
+      l[hi] = l[hi] * alpha[hi] + sum;
+    }
+    // V chunk c landed; every warp is done with K chunk c, so K chunk
+    // c + 1 may come in under p v
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+    if (c + 1 < nc) {
+      load_tile_f32<F_SWZ_QK>(aK, k + base, key0 + KC, s, ld);
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    }
+
+    // ---- o = o alpha + p v. Step kk takes keys 8kk .. 8kk + 7, whose p
+    // is score tile kk's C fragment; with k index t as key 2t and t + 4 as
+    // key 2t + 1 that is the A fragment (c0, c2, c1, c3), with no shuffle,
+    // and V's B fragment is rows 2t and 2t + 1 (p and V rows past s are 0)
+    uint32_t pb[KC / 8][4], ps[KC / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < KC / 8; ++kk) {
+      split_tf32(sc[kk][0], pb[kk][0], ps[kk][0]);
+      split_tf32(sc[kk][2], pb[kk][1], ps[kk][1]);
+      split_tf32(sc[kk][1], pb[kk][2], ps[kk][2]);
+      split_tf32(sc[kk][3], pb[kk][3], ps[kk][3]);
+    }
+    // the chunk's p v into fresh accumulators, 4 tiles at a time (a chain
+    // as long as S would drift, as above)
+#pragma unroll
+    for (int mq = 0; mq < 4; ++mq) {
+      float part[4][4];
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[x][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KC / 8; ++kk) {
+        const float4 v0 = tV[(8 * kk + 2 * t) * F_ROW + ((8 * mq + g) ^ fv)];
+        const float4 v1 = tV[(8 * kk + 2 * t + 1) * F_ROW + ((8 * mq + g) ^ fv)];
+        mma_3xtf32(part[0], pb[kk], ps[kk], v0.x, v1.x);
+        mma_3xtf32(part[1], pb[kk], ps[kk], v0.y, v1.y);
+        mma_3xtf32(part[2], pb[kk], ps[kk], v0.z, v1.z);
+        mma_3xtf32(part[3], pb[kk], ps[kk], v0.w, v1.w);
+      }
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          o[4 * mq + x][e] = fmaf(o[4 * mq + x][e], alpha[e / 2], part[x][e]);
+    }
+  }
+
+  // o / l, rows g and g + 8: tiles 4mq .. 4mq + 3 hold Dh columns 32mq +
+  // 8t .. 32mq + 8t + 7 of this thread's rows (C columns 2t and 2t + 1)
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    l[hi] += __shfl_xor_sync(0xffffffffu, l[hi], 1);
+    l[hi] += __shfl_xor_sync(0xffffffffu, l[hi], 2);
+    const int row = q0 + 16 * warp + g + 8 * hi;
+    if (row >= s) continue;
+    float4* orow = reinterpret_cast<float4*>(out + base + (int64_t)row * ld);
+#pragma unroll
+    for (int mq = 0; mq < 4; ++mq)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int e = 2 * hi + j;
+        orow[8 * mq + 2 * t + j] =
+            make_float4(o[4 * mq][e] / l[hi], o[4 * mq + 1][e] / l[hi],
+                        o[4 * mq + 2][e] / l[hi], o[4 * mq + 3][e] / l[hi]);
+      }
+  }
+}
+
 // ------------------------------------------------------------------ launch
 
 template <typename T, typename K>
@@ -468,43 +608,59 @@ cudaError_t launch(K kernel, int threads, int rows, size_t smem, const void* q,
   return cudaGetLastError();
 }
 
+// the f32 kernel's 96 KB fit twice only in the largest shared-memory
+// carveout
+cudaError_t carve_f32() {
+  return cudaFuncSetAttribute(attention_f32_kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
 }  // namespace
 
 // q, k, v, out: contiguous (b, s, heads * head_dim), 16-byte aligned;
-// dtype 0 = float32, 1 = bfloat16. head_dim must be 128; in float32 s is
-// at most MAX_SEQ, so that the score tile fits in shared memory (the
-// Python wrapper checks all of this).
+// dtype 0 = float32, 1 = bfloat16. head_dim must be 128 (the Python
+// wrapper checks all of this).
 extern "C" int egotap_attention_packed(const void* q, const void* k,
                                        const void* v, void* out, int b, int s,
                                        int heads, int head_dim, int dtype,
                                        void* stream) {
   if (head_dim != DH || s < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && s <= MAX_SEQ && smem_bytes_f32(s) <= SMEM_LIMIT)
-    return (int)launch<float>(attention_f32_kernel, THREADS, QT, smem_bytes_f32(s),
-                              q, k, v, out, b, s, heads, st);
+  if (dtype == 0) {
+    const cudaError_t err = carve_f32();
+    if (err != cudaSuccess) return (int)err;
+    return (int)launch<float>(attention_f32_kernel, F_THREADS, QT, F_SMEM, q, k, v,
+                              out, b, s, heads, st);
+  }
   if (dtype == 1)
     return (int)launch<bf16>(attention_bf16_kernel, BF_THREADS, BF_QT, BF_SMEM, q, k, v,
                              out, b, s, heads, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// What the bf16 kernel takes of an SM: info[0] = blocks of it one SM holds
-// at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor), info[1] =
-// registers a thread, info[2] = local (spill) bytes a thread, info[3] =
-// dynamic + static shared memory bytes a block, info[4] = threads a block.
-extern "C" int egotap_attention_bf16_occupancy(int* info) {
-  auto kernel = attention_bf16_kernel;
+// What the kernel of one dtype (0 = float32, 1 = bfloat16) takes of an
+// SM: info[0] = blocks of it one SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), info[1] = registers a
+// thread, info[2] = local (spill) bytes a thread, info[3] = dynamic +
+// static shared memory bytes a block, info[4] = threads a block.
+extern "C" int egotap_attention_occupancy(int dtype, int* info) {
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  const void* kernel = dtype == 0 ? (const void*)attention_f32_kernel
+                                  : (const void*)attention_bf16_kernel;
+  const int smem = dtype == 0 ? F_SMEM : BF_SMEM;
+  const int threads = dtype == 0 ? F_THREADS : BF_THREADS;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BF_SMEM);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && dtype == 0) err = carve_f32();
   if (err != cudaSuccess) return (int)err;
   cudaFuncAttributes attr;
   err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[0], kernel, BF_THREADS, BF_SMEM);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[0], kernel, threads, smem);
   info[1] = attr.numRegs;
   info[2] = (int)attr.localSizeBytes;
-  info[3] = BF_SMEM + (int)attr.sharedSizeBytes;
-  info[4] = BF_THREADS;
+  info[3] = smem + (int)attr.sharedSizeBytes;
+  info[4] = threads;
   return (int)err;
 }

@@ -34,7 +34,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "upsample": {"egotap_upsample2x": [_VP, _VP, _I, _I, _I, _I, _I, _VP]},
     "attention": {"egotap_attention_packed":
                   [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
-                  "egotap_attention_bf16_occupancy": [_VP]},
+                  "egotap_attention_occupancy": [_I, _VP]},
     "pu_chain": {"egotap_pu_chain":
                  [_VP] * 11 + [_I, _I, _I, _I, _VP]},
     "fused_layer1": {"egotap_fused_layer1": [_VP] * 7 + [_I] * 5 + [_VP]},

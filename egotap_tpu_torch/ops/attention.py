@@ -9,14 +9,18 @@ flattened to ``(B*H, S, Dh)`` is the packed one with a single head.
 
 Both wrappers run kernel B (``csrc/attention.cu``) for a CUDA tensor and
 `attention_packed_plain` for a CPU tensor; each counts its own launches.
-The bfloat16 kernel runs both products on ``wgmma`` with the scores in
-registers (two passes over the keys) and takes any S; the float32 kernel
-keeps a 64 x S score tile in shared memory and takes S up to
-`MAX_SEQ_F32`.
+Neither kernel keeps a score tile, so both take any S. The bfloat16
+kernel runs both products on ``wgmma`` with the scores in registers and
+two passes over the keys (p is normalised before it is rounded to bf16);
+the float32 kernel runs them on the tensor cores in 3xTF32 (each f32
+operand split into two TF32 parts, three TF32 products per product) in
+one pass with the online softmax (running max and sum, the context
+rescaled when the max moves), which in f32 is the same function up to
+rounding.
 Both follow the TPU kernel's numerics: f32 scores times ``1/sqrt(Dh)``,
-exact max-subtracted softmax in f32, probabilities normalised and then
-rounded to v's dtype, ``p @ v`` accumulated in f32, one rounding of the
-output.
+max-subtracted softmax in f32, probabilities normalised and then rounded
+to v's dtype (nothing to round in f32), ``p @ v`` accumulated in f32, one
+rounding of the output.
 """
 
 from __future__ import annotations
@@ -30,9 +34,6 @@ import torch
 from egotap_tpu_torch.ops import _build
 
 HEAD_DIM = 128            # the kernel's head width
-MAX_SEQ_F32 = 640         # float32 only: its 64 x S score tile must fit shared
-                          # memory (csrc/attention.cu MAX_SEQ). The bfloat16
-                          # kernel keeps its scores in registers: any S
 
 
 def attention_packed_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -58,7 +59,10 @@ def attention_packed_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # which flips some roundings of p and of the output by one bf16 ulp: up
 # to 2^-7 of max|plain| for the max. On an H100 at the Grid-ViT's shape
 # the kernel reads (1.1e-3, 1.0e-4); leaving p unrounded reads
-# (4.6e-3, 2.6e-3), so the rms limit is what catches that fault.
+# (4.6e-3, 2.6e-3), so the rms limit is what catches that fault. In f32
+# the kernel's products are 3xTF32 (about 22 of f32's 24 bits) and it
+# reads (1.5e-6, 8.2e-7) there; operands rounded to TF32 once read
+# (6.5e-4, 4.2e-4), a last key chunk dropped (0.62, 0.35).
 TOL = {torch.float32: (2e-5, 2e-6), torch.bfloat16: (8e-3, 5e-4)}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -73,13 +77,11 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("q, k, v must share shape and dtype")
     if q.dtype not in _DTYPE_CODE:
         raise NotImplementedError(f"attention kernel: dtype {q.dtype}")
-    too_long = q.dtype == torch.float32 and s > MAX_SEQ_F32
-    if d != heads * HEAD_DIM or s < 1 or too_long or b > 65535:
+    if d != heads * HEAD_DIM or s < 1 or b > 65535:
         raise NotImplementedError(
-            f"attention kernel covers head_dim {HEAD_DIM}, S >= 1 (S <= "
-            f"{MAX_SEQ_F32} in float32) and at most 65535 instances; got "
-            f"d={d}, heads={heads}, S={s}, B={b}, {q.dtype}")
-    # contiguous and 16-byte aligned: the bf16 kernel moves 16-byte vectors
+            f"attention kernel covers head_dim {HEAD_DIM}, S >= 1 and at "
+            f"most 65535 instances; got d={d}, heads={heads}, S={s}, B={b}")
+    # contiguous and 16-byte aligned: both kernels move 16-byte vectors
     q, k, v = (x if x.is_contiguous() and x.data_ptr() % 16 == 0
                else x.clone(memory_format=torch.contiguous_format)
                for x in (q, k, v))
@@ -112,11 +114,10 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     (`_attention_pallas` on (B*H, S, Dh)). Flattened to (B*H, S, Dh) it is
     the packed layout with one head, so on the card it launches kernel B
     with ``heads=1``: grid (ceil(S/64), 1, B*H). The kernel masks a
-    partial query and key tile, so it takes any S (up to `MAX_SEQ_F32` in
-    float32), also where JAX's Pallas rule (``S % 8 == 0 and Dh % 128 ==
-    0``) falls back to jnp; a card tensor it does not cover (Dh other than
-    128, float32 with S above `MAX_SEQ_F32`) raises. A CPU tensor takes the
-    plain formula."""
+    partial query and key tile, so it takes any S, also where JAX's Pallas
+    rule (``S % 8 == 0 and Dh % 128 == 0``) falls back to jnp; a card
+    tensor it does not cover (Dh other than 128) raises. A CPU tensor
+    takes the plain formula."""
     b, h, s, d = q.shape
     flat = [x.reshape(b * h, s, d) for x in (q, k, v)]
     if q.device.type == "cpu":
@@ -130,26 +131,28 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 multihead_attention.launches = 0
 
 
-def bf16_kernel_resources() -> dict:
-    """What the bfloat16 kernel takes of an SM (needs the card). From
-    ``ptxas -v`` in the build log: ``registers``, ``spill_store_bytes``,
-    ``spill_load_bytes`` and ``static_smem_bytes``; from the CUDA runtime:
-    ``smem_bytes`` a block (dynamic and static), ``threads`` a block,
-    ``runtime_registers``, ``local_bytes`` a thread, and ``blocks_per_sm``
-    as ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` reports it."""
+def kernel_resources(dtype: torch.dtype) -> dict:
+    """What the kernel of ``dtype`` (float32 or bfloat16) takes of an SM
+    (needs the card). From ``ptxas -v`` in the build log: ``registers``,
+    ``spill_store_bytes``, ``spill_load_bytes`` and ``static_smem_bytes``;
+    from the CUDA runtime: ``smem_bytes`` a block (dynamic and static),
+    ``threads`` a block, ``runtime_registers``, ``local_bytes`` a thread,
+    and ``blocks_per_sm`` as ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    reports it."""
+    name = {torch.float32: "attention_f32_kernel",
+            torch.bfloat16: "attention_bf16_kernel"}[dtype]
     log = _build.build_log("attention")
     entry = [part for part in log.split("Compiling entry function")
-             if "attention_bf16_kernel" in part.split("\n", 1)[0]]
+             if name in part.split("\n", 1)[0]]
     if len(entry) != 1:
-        raise RuntimeError("the build log holds no single bf16 attention "
-                           f"kernel:\n{log}")
+        raise RuntimeError(f"the build log holds no single {name}:\n{log}")
 
     def read(pattern):
         found = re.search(pattern, entry[0])
         return int(found.group(1)) if found else 0
     info = (ctypes.c_int * 5)()
-    _build.check(_build.library("attention").egotap_attention_bf16_occupancy(
-        ctypes.addressof(info)), "attention occupancy")
+    _build.check(_build.library("attention").egotap_attention_occupancy(
+        _DTYPE_CODE[dtype], ctypes.addressof(info)), "attention occupancy")
     return {"registers": read(r"Used (\d+) registers"),
             "spill_store_bytes": read(r"(\d+) bytes spill stores"),
             "spill_load_bytes": read(r"(\d+) bytes spill loads"),

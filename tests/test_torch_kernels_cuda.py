@@ -36,8 +36,7 @@ def _close(got, ref, tol):
 
 
 # sequence lengths around the kernels' tiles: 64 query rows a block (16 a
-# warp in bf16), 64 keys a chunk; 576 is the Grid-ViT's, 640 the most the
-# f32 kernel takes
+# warp), 64 keys a chunk; 576 is the Grid-ViT's
 SEQ_LENS = [1, 36, 63, 64, 65, 100, 127, 129, 576, 640]
 
 
@@ -55,51 +54,85 @@ def test_attention_matches_plain(gen, heads, s, dtype):
     _close(got, att.attention_packed_plain(q, k, v, heads), att.TOL[dt])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,s,heads", [(1, 641, 8), (2, 1000, 1),
                                        (1, 2048, 2)])
-def test_attention_bf16_long_seq(gen, b, s, heads):
-    """The bf16 kernel keeps no score tile, so S has no limit; the f32
-    kernel's stays at `MAX_SEQ_F32` and a longer f32 input raises."""
+def test_attention_bf16_long_seq(gen, b, s, heads, dtype):
+    """Neither kernel keeps a score tile, so S has no limit, on the packed
+    and on the unpacked layout."""
+    dt = getattr(torch, dtype)
     q, k, v = (torch.randn(b, s, heads * 128, generator=gen,
-                           device="cuda").bfloat16() for _ in range(3))
+                           device="cuda").to(dt) for _ in range(3))
     before = att.multihead_attention_packed.launches
     got = att.multihead_attention_packed(q, k, v, heads)
     assert att.multihead_attention_packed.launches == before + 1
-    _close(got, att.attention_packed_plain(q, k, v, heads),
-           att.TOL[torch.bfloat16])
-    assert s > att.MAX_SEQ_F32
-    with pytest.raises(NotImplementedError):
-        att.multihead_attention_packed(q.float(), k.float(), v.float(), heads)
-    with pytest.raises(NotImplementedError):
-        att.multihead_attention(*(x.float().view(b, s, heads, 128)
-                                  .transpose(1, 2) for x in (q, k, v)))
-    assert att.multihead_attention_packed.launches == before + 1
+    ref = att.attention_packed_plain(q, k, v, heads)
+    _close(got, ref, att.TOL[dt])
+    split = [x.view(b, s, heads, 128).transpose(1, 2) for x in (q, k, v)]
+    got = att.multihead_attention(*split)
+    _close(got.transpose(1, 2).reshape(q.shape), ref, att.TOL[dt])
 
 
-def test_attention_bf16_masks_ragged_tiles(gen):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_bf16_masks_ragged_tiles(gen, dtype):
     """Rows and keys past S are never read as data: q, k and v are the
     first S rows of buffers whose tails hold NaNs (for one instance such a
     view is contiguous, so the wrapper passes it on as it is)."""
+    dt = getattr(torch, dtype)
     s, heads = 100, 8
     big = torch.full((3, 1, 128, heads * 128), float("nan"), device="cuda",
-                     dtype=torch.bfloat16)
+                     dtype=dt)
     big[:, :, :s] = torch.randn(3, 1, s, heads * 128, generator=gen,
-                                device="cuda").bfloat16()
+                                device="cuda").to(dt)
     q, k, v = (x[:, :s] for x in big)
     assert q.is_contiguous() and v.data_ptr() == big[2].data_ptr()
     got = att.multihead_attention_packed(q, k, v, heads)
     assert torch.isfinite(got).all()
-    _close(got, att.attention_packed_plain(q, k, v, heads),
-           att.TOL[torch.bfloat16])
+    _close(got, att.attention_packed_plain(q, k, v, heads), att.TOL[dt])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["packed", "unpacked"])
+@pytest.mark.parametrize("s", [100, 576])
+def test_attention_late_row_max(gen, s, layout, dtype):
+    """Every row's max sits on the last key, in the last chunk: the f32
+    kernel's running max moves there, and its context and sum must be
+    rescaled (q has a common offset and the last key points along it, so
+    its score is about 8.5 where the others spread about 1.1)."""
+    dt, heads = getattr(torch, dtype), 8
+    q, k, v = (torch.randn(2, s, heads * 128, generator=gen, device="cuda")
+               for _ in range(3))
+    q = 0.5 * q + 1
+    k[:, -1] = 0.75
+    q, k, v = (x.to(dt) for x in (q, k, v))
+    ref = att.attention_packed_plain(q, k, v, heads)
+    scores = (q[:, :, :128].float() @ k[:, :, :128].float().transpose(1, 2))
+    assert (scores.argmax(-1) == s - 1).all()
+    if layout == "packed":
+        got = att.multihead_attention_packed(q, k, v, heads)
+    else:
+        split = [x.view(2, s, heads, 128).transpose(1, 2) for x in (q, k, v)]
+        got = att.multihead_attention(*split).transpose(1, 2).reshape(q.shape)
+    _close(got, ref, att.TOL[dt])
 
 
 def test_attention_bf16_kernel_resources(gen):
     """The build log and the runtime agree on the kernel's registers, and
     at least three of its blocks fit one SM (the design's occupancy)."""
-    res = att.bf16_kernel_resources()
+    res = att.kernel_resources(torch.bfloat16)
     assert res["registers"] == res["runtime_registers"] > 0
     assert res["blocks_per_sm"] >= 3, res
     assert res["smem_bytes"] <= 227 * 1024 // 3
+
+
+def test_attention_f32_kernel_resources(gen):
+    """The same for the f32 kernel: at least two of its blocks fit one SM,
+    with no register spilled."""
+    res = att.kernel_resources(torch.float32)
+    assert res["registers"] == res["runtime_registers"] > 0
+    assert res["blocks_per_sm"] >= 2, res
+    assert res["spill_store_bytes"] == res["local_bytes"] == 0, res
+    assert res["smem_bytes"] <= 227 * 1024 // 2
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -139,10 +172,9 @@ def test_uncovered_shapes_raise(gen):
     q = torch.randn(1, 16, 4 * 64, generator=gen, device="cuda")
     with pytest.raises(NotImplementedError):
         att.multihead_attention_packed(q, q, q, 4)          # head_dim 64
-    long = torch.randn(1, att.MAX_SEQ_F32 + 1, 128, generator=gen,
-                       device="cuda")
+    half = torch.randn(1, 16, 128, generator=gen, device="cuda").half()
     with pytest.raises(NotImplementedError):
-        att.multihead_attention_packed(long, long, long, 1)  # f32, S > 640
+        att.multihead_attention_packed(half, half, half, 1)  # float16
     with pytest.raises(NotImplementedError):
         up.upsample2x_align_corners(
             torch.randn(1, 4, 4, 6, generator=gen, device="cuda").bfloat16())
