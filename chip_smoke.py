@@ -16,9 +16,12 @@ Exits non-zero, printing no result, when there is no card. Phases:
    TF32, the last key chunk or a term dropped, one int8 scale for the
    whole batch) must fall outside those limits; median CUDA-event times
    of the kernel, its plain version and a one-call PyTorch yardstick
-   where one exists (never used by the port); before B's timings, each
-   attention kernel's registers, spill bytes and shared memory (``ptxas
-   -v``) and the blocks of it one SM holds. Kernels:
+   where one exists (never used by the port); before B's and C's
+   timings, each of their kernels' registers, spill bytes and shared
+   memory (``ptxas -v``) and the blocks of it one SM holds (for C also
+   its blocks and units a block); for C also the device time of its
+   launch alone and of its walk with its grid barriers alone, its
+   latency floor (torch.profiler). Kernels:
    A upsample, B packed attention and B on the unpacked layout, C PU
    chain, D fused int8 layer1 (also timed against the unfused int8
    layer1 it replaces).
@@ -94,6 +97,29 @@ def time_ms(torch, fn, iters=ITERS, warmup=3):
         pairs.append((s, e))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def device_ms(torch, fn, kernel, iters=ITERS):
+    """Median device time of one launch of the kernel whose name holds
+    ``kernel``, one launch a call of ``fn``, under torch.profiler: the
+    kernel alone, without its wrapper's host time and small allocations
+    (a short kernel's CUDA-event time is its host time when the host is
+    the slower side)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    times = [evt.device_time_total / 1e3 for evt in prof.events()
+             if evt.device_type == torch.autograd.DeviceType.CUDA
+             and kernel in evt.name]
+    if len(times) != iters:
+        raise AssertionError(f"the profiler saw {len(times)} launches of "
+                             f"{kernel}, not {iters}")
+    return statistics.median(times)
 
 
 def check(name, got, ref, tol, failures):
@@ -294,14 +320,28 @@ def phase_kernels(torch, F, card):
     # ---- C: PU chain at the lifter's shape
     b, J, H = 32, 15, 512
     for dt in (torch.float32, torch.bfloat16):
+        res = pu_kernel.kernel_resources(dt, b, H)
+        print(f"  pu_chain {dt} kernel: ptxas {res['registers']} registers, "
+              f"{res['spill_store_bytes']} + {res['spill_load_bytes']} bytes "
+              f"spill stores + loads; {res['blocks']} blocks of "
+              f"{res['units']} units and {res['threads']} threads, "
+              f"{res['smem_bytes']} bytes of shared memory a block "
+              f"(k-chunk {res['kc']}, {res['ks']} k-splits), "
+              f"{res['blocks_per_sm']} blocks fit one SM of {res['sms']}")
+        if (res["blocks_per_sm"] < 1 or res["blocks"] > res["sms"]
+                or res["registers"] != res["runtime_registers"]):
+            raise AssertionError(f"{dt} PU chain kernel resources: {res}")
+
         def u(*shape, bound=H ** -0.5):
             return (torch.rand(shape, generator=g, device=dev) * 2 - 1) * bound
         fh = torch.sigmoid(torch.randn(b, J, H, generator=g, device=dev))
         gp = 0.5 * torch.randn(b, J, 4 * H, generator=g, device=dev)
-        w0 = u(H, 4 * H).to(dt)
-        cell1 = {"x2f": {"kernel": u(H, H).to(dt), "bias": u(H)},
-                 "x2h": {"kernel": u(H, 4 * H).to(dt), "bias": u(4 * H)},
-                 "h2h": {"kernel": u(H, 4 * H).to(dt), "bias": u(4 * H)}}
+        # (in, out) kernels as the lifter passes them: transposed views of
+        # (out, in) Linear weights, which the kernel reads without a copy
+        w0 = u(4 * H, H).to(dt).t()
+        cell1 = {"x2f": {"kernel": u(H, H).to(dt).t(), "bias": u(H)},
+                 "x2h": {"kernel": u(4 * H, H).to(dt).t(), "bias": u(4 * H)},
+                 "h2h": {"kernel": u(4 * H, H).to(dt).t(), "bias": u(4 * H)}}
         ref = pu_chain_plain(fh, gp, w0, cell1)
         err = check(f"pu_chain {dt} B={b} J={J} H={H}",
                     pu_chain_fused(fh, gp, w0, cell1), ref,
@@ -319,6 +359,11 @@ def phase_kernels(torch, F, card):
                     pu_kernel.TOL[dt], failures)
         ms = time_ms(torch, lambda: pu_chain_fused(fh, gp, w0, cell1))
         pms = time_ms(torch, lambda: pu_chain_plain(fh, gp, w0, cell1))
+        dms = device_ms(torch, lambda: pu_chain_fused(fh, gp, w0, cell1),
+                        "pu_chain_kernel")
+        floor = device_ms(torch, lambda: pu_kernel.barrier_walk(b, J, H, dt,
+                                                                dev),
+                          "pu_chain_kernel")
         flops = 2 * b * H * 13 * H * J
         wbytes = (w0.numel() + sum(c["kernel"].numel() for c in cell1.values())
                   ) * w0.element_size()
@@ -327,11 +372,13 @@ def phase_kernels(torch, F, card):
         peak = BF16_TENSOR_FLOPS if dt == torch.bfloat16 else F32_FLOPS
         t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
         bound = 1e3 * max(t_ops, t_bytes)
-        print(f"    kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
-              f"{bound:.4f} ms [{card}]")
+        print(f"    kernel {ms:.4f} ms (its launch alone on the device "
+              f"{dms:.4f} ms), plain {pms:.4f} ms, bound {bound:.4f} ms, "
+              f"latency floor (the walk's {J + 1} grid barriers alone, on "
+              f"the device) {floor:.4f} ms [{card}]")
         rows[("pu_chain", dt)] = dict(
             ms=ms, plain_ms=pms, library_ms=None, bound_ms=bound,
-            max_abs_err=err,
+            max_abs_err=err, device_ms=dms, latency_floor_ms=floor,
             bound_by="operations" if t_ops >= t_bytes else "bytes")
 
     # ---- B on the unpacked (B, H, S, Dh) layout (`multihead_attention`)
@@ -731,10 +778,11 @@ def main() -> int:
     fused, unpacked = phase_entry_points(torch, card)
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     # launches of each row: the int8 forward's (bf16 compute) for the bf16
-    # rows, the f32 forward's for the f32 attention row, and the entry
-    # points' own calls for kernel D and the unpacked wrapper
+    # rows, the f32 forward's for the f32 attention and PU chain rows, and
+    # the entry points' own calls for kernel D and the unpacked wrapper
     launches = {(n, torch.bfloat16): c for n, c in served["int8"].items()}
-    launches[("attention", torch.float32)] = served["f32"]["attention"]
+    for n in ("attention", "pu_chain"):
+        launches[(n, torch.float32)] = served["f32"][n]
     launches[("fused_layer1", torch.bfloat16)] = fused
     for dt, c in unpacked.items():
         launches[("attention_unpacked", dt)] = c
@@ -766,8 +814,9 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "dtype": str(dt).removeprefix("torch.")})
-        if "unfused_ms" in r:
-            kernels[-1]["unfused_ms"] = r["unfused_ms"]
+        for extra in ("unfused_ms", "device_ms", "latency_floor_ms"):
+            if extra in r:
+                kernels[-1][extra] = r[extra]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

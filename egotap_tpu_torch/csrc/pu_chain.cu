@@ -10,229 +10,401 @@
 // weights' dtype (f32 or bf16) before each product, which accumulates in
 // f32, as the TPU kernel's preferred_element_type dots do.
 //
-// Bound on the H100: the chain is 15 dependent steps of [B,H]x[H,4H]
-// products (3.3 GFLOP and ~13 MB at B=32, H=512 in bf16, a few us of
-// bound), so what limits it is latency: the steps cannot overlap, and
-// each step needs the whole of h0 before layer 1 can start. Launched as
-// ~100 small PyTorch ops it would be dominated by launch gaps.
+// What bounds it on the H100: latency. The chain is J dependent steps of
+// [B,H]x[H,13H/4]-sized products (3.3 GFLOP and 7 MB of bf16 weights at
+// B=32, H=512: a few us of bytes or operations); every step needs the
+// whole h0 of the step before, so the grid must meet at a barrier between
+// steps, and the walk cannot be shorter than its barriers.
 //
-// Design: one cooperative launch for the whole walk. Weights are in
-// PyTorch's (out, in) layout, so each gate column is a contiguous row.
-// Block p owns hidden units [p*U, (p+1)*U) and computes all four gates of
-// them (columns u, H+u, 2H+u, 3H+u), so it applies the cell update
-// itself. h0 is double-buffered in global memory; c0, c1, h1 of a unit are
-// touched only by the block that owns it. Two grid-wide barriers per joint
-// separate the phases: (1) layer-0 gates and update; (2) fh1 and the x2h
-// part of layer 1's gates, and fh1*h1 published; (3) layer-1 gates and
-// update. Weights are read each step from global memory: at 6.8 MB (bf16)
-// they stay in the 50 MB L2 across steps. Keeping them resident in
-// shared memory is later work.
+// Design. One cooperative launch (so that every block is resident) of
+// H/U blocks; block p owns hidden units [p*U, (p+1)*U) and all four
+// gates of them, so it applies their cell updates itself, and their c0,
+// c1, h1 and pending layer-1 gates live in its shared memory.
+// - Weights stay in shared memory for the whole walk: the wrapper packs
+//   the 13U rows a block needs (its gate columns of Wh2h, Wx2f1, Wx2h1,
+//   Wh2h1, each a row of H) contiguously, and the block loads them once
+//   by cp.async (53 KB bf16, 107 KB f32 at H=512, U=4).
+// - One grid barrier per interval instead of two per joint. Layer 0 of
+//   joint u needs only h0(u-1), so it runs beside layer 1 of the joints
+//   before it: in interval u (u = 0 .. J+1) every block runs three
+//   products on operands that were published before the barrier,
+//     P0: layer 0 of joint u       on a0 = round(fh(u) * h0(u-1))
+//     P1: Wx2f1|Wx2h1 of joint u-1 on x  = round(h0(u-1))
+//     P2: Wh2h1 of joint u-2       on a1 = round(fh1(u-2) * h1(u-3))
+//   and then the cell updates, which publish the next a0, x and a1.
+//   J + 2 intervals, J + 1 barriers (from 2J), with a fill (no P1, P2 in
+//   interval 0) and a drain (only P2 in interval J+1).
+// - The published operands are rounded to the weight dtype by their
+//   owner (half the bytes in bf16, and no fh*h0 multiply while staging),
+//   and double-buffered: interval u writes slot u%2 and reads slot
+//   (u+1)%2, which nobody writes until every block passed the next
+//   barrier, i.e. finished reading it. Other blocks' operands are read
+//   by cp.async.cg, from L2, never through the SM's L1.
+// - Each product's A operand goes through a ring of k-chunks (all three
+//   operands of a chunk in one stage) by cp.async, under the compute of
+//   the chunk before. Outputs are 4 x 4 register tiles (4 batch rows x 4
+//   gate columns of one product), split over k across the threads; each
+//   tile's partial sums are added into shared memory per chunk and the
+//   k-splits summed in a fixed order (deterministic).
+// - The barrier is a counter in global memory: one arrive (release) and
+//   one acquiring spin by one thread a block, between two __syncthreads.
+// With `barrier_only` the walk runs its barriers and nothing else: that
+// time is the kernel's latency floor.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <cooperative_groups.h>
 #include <stdint.h>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int KC = 64;          // reduction chunk staged in shared memory
-constexpr int PA = KC + 1;      // padded pitch
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename W> __device__ __forceinline__ float round_to(float x);
-template <> __device__ __forceinline__ float round_to<float>(float x) { return x; }
-template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
+template <typename W> __device__ __forceinline__ W from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
 }
 __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
 
-// G[b][gcol0 + c] += sum_k a_of(b, k) * wrow(c)[k]  for b < B, c < NC
-template <typename W, typename AFn, typename RowFn>
-__device__ void gemm_acc(float* sA, float* sW, float* G, int ldg, int gcol0,
-                         int B, int H, int NC, AFn a_of, RowFn wrow) {
-  const int tid = threadIdx.x;
-  for (int k0 = 0; k0 < H; k0 += KC) {
-    __syncthreads();
-    for (int i = tid; i < B * KC; i += THREADS) {
-      const int b = i / KC, kk = i % KC, k = k0 + kk;
-      sA[b * PA + kk] = k < H ? a_of(b, k) : 0.f;
-    }
-    for (int i = tid; i < NC * KC; i += THREADS) {
-      const int c = i / KC, kk = i % KC, k = k0 + kk;
-      sW[c * PA + kk] = k < H ? to_f(wrow(c)[k]) : 0.f;
-    }
-    __syncthreads();
-    for (int o = tid; o < B * NC; o += THREADS) {
-      const int b = o / NC, c = o % NC;
-      const float* a = sA + b * PA;
-      const float* w = sW + c * PA;
-      float s = 0.f;
-#pragma unroll 8
-      for (int kk = 0; kk < KC; ++kk) s = fmaf(a[kk], w[kk], s);
-      G[b * ldg + gcol0 + c] += s;
-    }
+// four consecutive values as f32, by one 16-byte (f32) or 8-byte (bf16) load
+__device__ __forceinline__ void load4(const float* p, float v[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);
+  v[0] = __uint_as_float(t.x << 16); v[1] = __uint_as_float(t.x & 0xffff0000u);
+  v[2] = __uint_as_float(t.y << 16); v[3] = __uint_as_float(t.y & 0xffff0000u);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// every block of the grid has arrived `target / gridDim.x` times
+__device__ __forceinline__ void grid_barrier(unsigned* counter, unsigned target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" :: "l"(counter) : "memory");
+    unsigned seen;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+                   : "=r"(seen) : "l"(counter) : "memory");
+    } while (seen < target);
+    __threadfence();
   }
   __syncthreads();
 }
 
+constexpr int NST = 2;          // stages of the operand ring
+
+// Launch geometry: U from the wrapper (egotap_tpu_torch/ops/pu_kernel.py),
+// KC and KS from `prepare`
+struct Geo {
+  int B, J, H, HP, U;           // HP: H padded to a multiple of 16
+  int KC, KS;                   // k-chunk of the ring; k-splits of a tile
+};
+
+template <typename W> struct Layout {
+  int wp, ap;                   // row pitches (elements) of weights, operands
+  size_t w_off, a_off, p_off, s_off, bytes;
+  __host__ __device__ Layout(const Geo& g) {
+    wp = g.HP + 16 / (int)sizeof(W);         // +16 bytes: rows on other banks
+    ap = g.KC + 16 / (int)sizeof(W);
+    w_off = 0;
+    a_off = w_off + (size_t)13 * g.U * wp * sizeof(W);
+    p_off = a_off + (size_t)NST * 3 * g.B * ap * sizeof(W);
+    s_off = p_off + (size_t)g.KS * g.B * 13 * g.U * sizeof(float);
+    // c0, c1, h1 (B x U), pending layer-1 gates (B x 4U), biases (9U)
+    bytes = s_off + ((size_t)g.B * 7 * g.U + 9 * g.U) * sizeof(float);
+  }
+};
+
 template <typename W>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
 pu_chain_kernel(const float* __restrict__ fh, const float* __restrict__ gp,
-                const W* __restrict__ wh2h, const W* __restrict__ wx2f1,
-                const float* __restrict__ bx2f1, const W* __restrict__ wx2h1,
-                const float* __restrict__ bx2h1, const W* __restrict__ wh2h1,
-                const float* __restrict__ bh2h1, float* __restrict__ out,
-                float* scratch, int B, int J, int H, int U) {
-  extern __shared__ float smem[];
-  float* sA = smem;                    // B x PA
-  float* sW = sA + B * PA;             // 5U x PA
-  float* G = sW + 5 * U * PA;          // B x 5U accumulators
-  const int ldg = 5 * U;
-  const int u0 = blockIdx.x * U;
+                const W* __restrict__ wpack, const float* __restrict__ bx2f1,
+                const float* __restrict__ bx2h1, const float* __restrict__ bh2h1,
+                float* __restrict__ out, W* ops, unsigned* counter, Geo g,
+                int barrier_only) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout<W> L(g);
+  const int B = g.B, J = g.J, H = g.H, HP = g.HP, U = g.U;
   const int tid = threadIdx.x;
-  cg::grid_group grid = cg::this_grid();
+  const int u0 = blockIdx.x * U;
+  const unsigned nblk = gridDim.x;
 
-  const int64_t BH = (int64_t)B * H;
-  float* h0buf = scratch;              // 2 x B x H (double buffer)
-  float* c0 = scratch + 2 * BH;
-  float* c1 = scratch + 3 * BH;
-  float* h1 = scratch + 4 * BH;
-  float* a1 = scratch + 5 * BH;        // round(fh1 * h1), published per step
-  // h0 and a1 are written by other blocks: they are read with __ldcg (from
-  // L2, not the SM's L1) after each grid barrier
-  // gate column c (< 4U) of this block -> row of a (4H, H) weight
-  auto gate_row = [=](int c) { return (c / U) * H + u0 + c % U; };
+  if (barrier_only) {
+    for (int u = 0; u <= J; ++u) grid_barrier(counter, (u + 1) * nblk);
+    return;
+  }
 
-  for (int j = 0; j < J; ++j) {
-    const float* h0 = h0buf + (j & 1) * BH;
-    float* h0n = h0buf + ((j + 1) & 1) * BH;
+  W* Wsm = reinterpret_cast<W*>(smem + L.w_off);
+  W* Asm = reinterpret_cast<W*>(smem + L.a_off);
+  float* P = reinterpret_cast<float*>(smem + L.p_off);
+  float* c0 = reinterpret_cast<float*>(smem + L.s_off);
+  float* c1 = c0 + B * U;
+  float* h1 = c1 + B * U;
+  float* pend = h1 + B * U;                  // B x 4U
+  float* bias = pend + B * 4 * U;            // bx2f1 (U), bx2h1 (4U), bh2h1 (4U)
+  const int NCOL = 13 * U;
 
-    // ---- phase 1: layer-0 gates and cell update
+  // ---- weights, once: 13U rows of HP from this block's packed segment
+  {
+    const W* src = wpack + (size_t)blockIdx.x * NCOL * HP;
+    const int vpr = HP * (int)sizeof(W) / 16;              // 16-byte vectors a row
+    for (int i = tid; i < NCOL * vpr; i += THREADS) {
+      const int r = i / vpr, v = i % vpr;
+      cp_async16(reinterpret_cast<unsigned char*>(Wsm + (size_t)r * L.wp) + 16 * v,
+                 reinterpret_cast<const unsigned char*>(src + (size_t)r * HP) + 16 * v);
+    }
+    cp_async_commit();
+  }
+  for (int i = tid; i < B * 7 * U; i += THREADS) c0[i] = 0.f;   // c0, c1, h1, pend
+  for (int i = tid; i < 4 * U; i += THREADS) {
+    const int at = i / U * H + u0 + i % U;                // gate i/U, unit i%U
+    if (i < U) bias[i] = bx2f1[u0 + i];
+    bias[U + i] = bx2h1[at];
+    bias[5 * U + i] = bh2h1[at];
+  }
+
+  // column groups of 4: product p has widths 4U, 5U, 4U at rows 0, 4U, 9U
+  const int ng0 = U, ng1 = (5 * U + 3) / 4, ngroups = ng0 + ng1 + U;
+  const int RG = (B + 3) / 4;                // row groups: rows rg + RG*i
+  const int tiles = RG * ngroups;
+  const int items = tiles * g.KS;
+  const int ksl = g.KC / g.KS;               // k of one split within a chunk
+  const int nch = HP / g.KC;
+  const int64_t slot_elems = (int64_t)B * HP;   // ops: [3][2][B][HP]
+
+  // stage chunk c (k from c*KC) of all three operands of slot `rd`
+  auto stage = [&](int c, int rd) {
+    W* dst = Asm + (size_t)(c % NST) * 3 * B * L.ap;
+    const int vpr = g.KC * (int)sizeof(W) / 16;
+    for (int i = tid; i < 3 * B * vpr; i += THREADS) {
+      const int v = i % vpr, row = i / vpr, p = row / B, b = row % B;
+      const W* src = ops + (2 * p + rd) * slot_elems + (int64_t)b * HP + c * g.KC;
+      cp_async16(reinterpret_cast<unsigned char*>(dst + (size_t)row * L.ap) + 16 * v,
+                 reinterpret_cast<const unsigned char*>(src) + 16 * v);
+    }
+  };
+
+  for (int u = 0; u <= J + 1; ++u) {
+    const int rd = (u + 1) & 1, wr = u & 1;
+    // ---- the three products, k-chunk by k-chunk through the ring
+    stage(0, rd);
+    cp_async_commit();
+    for (int c = 0; c < nch; ++c) {
+      if (c + 1 < nch) stage(c + 1, rd);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      const W* As = Asm + (size_t)(c % NST) * 3 * B * L.ap;
+      for (int it = tid; it < items; it += THREADS) {
+        const int ks = it / tiles, tile = it % tiles;
+        const int rg = tile % RG, grp = tile / RG;
+        int p, cb, width, row0;
+        if (grp < ng0) { p = 0; cb = 4 * grp; width = 4 * U; row0 = 0; }
+        else if (grp < ng0 + ng1) { p = 1; cb = 4 * (grp - ng0); width = 5 * U; row0 = 4 * U; }
+        else { p = 2; cb = 4 * (grp - ng0 - ng1); width = 4 * U; row0 = 9 * U; }
+        const W* a[4];
+        const W* w[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = min(rg + RG * i, B - 1);
+          a[i] = As + (size_t)(p * B + r) * L.ap + ks * ksl;
+          w[i] = Wsm + (size_t)(row0 + min(cb + i, width - 1)) * L.wp + c * g.KC + ks * ksl;
+        }
+        float acc[4][4] = {};
+        for (int kk = 0; kk < ksl; kk += 4) {
+          float av[4][4], wv[4][4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) { load4(a[i] + kk, av[i]); load4(w[i] + kk, wv[i]); }
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i][q], wv[j][q], acc[i][j]);
+        }
+        float* Pk = P + (size_t)ks * B * NCOL;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = rg + RG * i;
+          if (r >= B) continue;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (cb + j >= width) continue;
+            float* dst = Pk + (size_t)r * NCOL + row0 + cb + j;
+            *dst = c == 0 ? acc[i][j] : *dst + acc[i][j];
+          }
+        }
+      }
+      __syncthreads();                       // the slot is refilled next
+    }
+    // ---- the k-splits summed in order, into split 0
+    for (int e = tid; e < B * NCOL; e += THREADS) {
+      float s = P[e];
+      for (int ks = 1; ks < g.KS; ++ks) s += P[(size_t)ks * B * NCOL + e];
+      P[e] = s;
+    }
     __syncthreads();
-    for (int i = tid; i < B * 4 * U; i += THREADS) {
-      const int b = i / (4 * U), c = i % (4 * U);
-      G[b * ldg + c] = gp[((int64_t)b * J + j) * 4 * H + gate_row(c)];
-    }
-    gemm_acc<W>(sA, sW, G, ldg, 0, B, H, 4 * U,
-        [=](int b, int k) {
-          return round_to<W>(fh[((int64_t)b * J + j) * H + k] * __ldcg(h0 + (int64_t)b * H + k));
-        },
-        [=](int c) { return wh2h + (int64_t)gate_row(c) * H; });
-    for (int i = tid; i < B * U; i += THREADS) {
-      const int b = i / U, uu = i % U;
-      const float* g = G + b * ldg;
-      const int64_t at = (int64_t)b * H + u0 + uu;
-      const float c = c0[at] * sigmoid(g[uu]) + sigmoid(g[U + uu]) * tanhf(g[2 * U + uu]);
-      c0[at] = c;
-      h0n[at] = sigmoid(g[3 * U + uu]) * tanhf(c);
-    }
-    grid.sync();
 
-    // ---- phase 2: fh1 (columns [0, U)) and h0 @ Wx2h1 + b (columns [U, 5U))
-    __syncthreads();
-    for (int i = tid; i < B * 5 * U; i += THREADS) {
-      const int b = i / (5 * U), c = i % (5 * U);
-      G[b * ldg + c] = c < U ? bx2f1[u0 + c] : bx2h1[gate_row(c - U)];
+    // ---- cell updates of this block's units; publish a0, x, a1 into slot wr
+    W* a0w = ops + (0 * 2 + wr) * slot_elems;
+    W* xw = ops + (1 * 2 + wr) * slot_elems;
+    W* a1w = ops + (2 * 2 + wr) * slot_elems;
+    for (int e = tid; e < B * U; e += THREADS) {
+      const int b = e / U, uu = e % U, hu = u0 + uu;
+      const float* G = P + (size_t)b * NCOL;
+      const int64_t at = (int64_t)b * HP + hu;
+      if (u < J) {                                      // layer 0, joint u
+        const float* gpr = gp + ((int64_t)b * J + u) * 4 * H + hu;
+        const float f = __ldg(gpr) + G[uu];
+        const float in = __ldg(gpr + H) + G[U + uu];
+        const float gg = __ldg(gpr + 2 * H) + G[2 * U + uu];
+        const float o = __ldg(gpr + 3 * H) + G[3 * U + uu];
+        const float c = c0[e] * sigmoid(f) + sigmoid(in) * tanhf(gg);
+        c0[e] = c;
+        const float h = sigmoid(o) * tanhf(c);
+        xw[at] = from_f<W>(h);
+        if (u + 1 < J) a0w[at] = from_f<W>(__ldg(fh + ((int64_t)b * J + u + 1) * H + hu) * h);
+      }
+      if (u >= 2) {                                     // layer 1, joint u-2
+        const float* pe = pend + b * 4 * U;
+        const float* bh = bias + 5 * U;
+        const float f = pe[uu] + G[9 * U + uu] + bh[uu];
+        const float in = pe[U + uu] + G[10 * U + uu] + bh[U + uu];
+        const float gg = pe[2 * U + uu] + G[11 * U + uu] + bh[2 * U + uu];
+        const float o = pe[3 * U + uu] + G[12 * U + uu] + bh[3 * U + uu];
+        const float c = c1[e] * sigmoid(f) + sigmoid(in) * tanhf(gg);
+        c1[e] = c;
+        const float h = sigmoid(o) * tanhf(c);
+        h1[e] = h;
+        out[((int64_t)b * J + u - 2) * H + hu] = h;
+      }
+      if (u >= 1 && u <= J) {                           // x2f1, x2h1, joint u-1
+        const float fh1 = sigmoid(G[4 * U + uu] + bias[uu]);
+        float* pe = pend + b * 4 * U;
+#pragma unroll
+        for (int gt = 0; gt < 4; ++gt)
+          pe[gt * U + uu] = G[(5 + gt) * U + uu] + bias[U + gt * U + uu];
+        a1w[at] = from_f<W>(fh1 * h1[e]);
+      }
     }
-    gemm_acc<W>(sA, sW, G, ldg, 0, B, H, 5 * U,
-        [=](int b, int k) { return round_to<W>(__ldcg(h0n + (int64_t)b * H + k)); },
-        [=](int c) {
-          return c < U ? wx2f1 + (int64_t)(u0 + c) * H
-                       : wx2h1 + (int64_t)gate_row(c - U) * H;
-        });
-    for (int i = tid; i < B * U; i += THREADS) {
-      const int b = i / U, uu = i % U;
-      const int64_t at = (int64_t)b * H + u0 + uu;
-      a1[at] = round_to<W>(sigmoid(G[b * ldg + uu]) * h1[at]);
-    }
-    grid.sync();
-
-    // ---- phase 3: + (fh1 * h1) @ Wh2h1 + b, layer-1 cell update
-    gemm_acc<W>(sA, sW, G, ldg, U, B, H, 4 * U,
-        [=](int b, int k) { return __ldcg(a1 + (int64_t)b * H + k); },
-        [=](int c) { return wh2h1 + (int64_t)gate_row(c) * H; });
-    for (int i = tid; i < B * U; i += THREADS) {
-      const int b = i / U, uu = i % U;
-      const float* g = G + b * ldg + U;
-      const int u = u0 + uu;
-      const int64_t at = (int64_t)b * H + u;
-      const float f = g[uu] + bh2h1[u];
-      const float in = g[U + uu] + bh2h1[H + u];
-      const float gg = g[2 * U + uu] + bh2h1[2 * H + u];
-      const float o = g[3 * U + uu] + bh2h1[3 * H + u];
-      const float c = c1[at] * sigmoid(f) + sigmoid(in) * tanhf(gg);
-      c1[at] = c;
-      const float h = sigmoid(o) * tanhf(c);
-      h1[at] = h;
-      out[((int64_t)b * J + j) * H + u] = h;
-    }
+    if (u <= J) grid_barrier(counter, (u + 1) * nblk);
   }
 }
 
-size_t smem_bytes(int B, int U) {
-  return sizeof(float) * ((size_t)B * PA + (size_t)5 * U * PA + (size_t)B * 5 * U);
+bool valid(const Geo& g) {
+  return g.B >= 1 && g.J >= 1 && g.U >= 1 && g.H % g.U == 0 && g.HP % 16 == 0 &&
+         g.HP >= g.H;
 }
 
+// The largest k-chunk (<= 256, dividing HP) whose layout fits the card's
+// shared memory, and as many k-splits as keep every thread busy; sets
+// g.KC, g.KS and the block's shared memory bytes.
 template <typename W>
-cudaError_t launch(void** p, int B, int J, int H, cudaStream_t stream) {
-  int dev = 0, sms = 0, per_sm = 0;
+cudaError_t prepare(Geo& g, size_t* smem) {
+  if (!valid(g)) return cudaErrorInvalidValue;
+  int dev = 0, limit = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  // smallest unit slice that gives at most one block per SM: a cooperative
-  // launch needs the whole grid resident, and every block re-reads the
-  // whole [B, H] operand each phase, so more blocks than SMs buys nothing
-  for (int U = 1; U <= H; U *= 2) {
-    if (H % U) continue;
-    const size_t smem = smem_bytes(B, U);
-    err = cudaFuncSetAttribute(pu_chain_kernel<W>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pu_chain_kernel<W>,
-                                                        THREADS, smem);
-    if (err != cudaSuccess) return err;
-    if (per_sm < 1 || H / U > sms) continue;
-    const W* wh2h = static_cast<const W*>(p[2]);
-    const W* wx2f1 = static_cast<const W*>(p[3]);
-    const W* wx2h1 = static_cast<const W*>(p[5]);
-    const W* wh2h1 = static_cast<const W*>(p[7]);
-    const float* fh = static_cast<const float*>(p[0]);
-    const float* gp = static_cast<const float*>(p[1]);
-    const float* bx2f1 = static_cast<const float*>(p[4]);
-    const float* bx2h1 = static_cast<const float*>(p[6]);
-    const float* bh2h1 = static_cast<const float*>(p[8]);
-    float* out = static_cast<float*>(p[9]);
-    float* scratch = static_cast<float*>(p[10]);
-    void* args[] = {&fh, &gp, &wh2h, &wx2f1, &bx2f1, &wx2h1, &bx2h1, &wh2h1,
-                    &bh2h1, &out, &scratch, &B, &J, &H, &U};
-    err = cudaLaunchCooperativeKernel((const void*)pu_chain_kernel<W>, dim3(H / U),
-                                      dim3(THREADS), args, smem, stream);
-    if (err != cudaSuccess) return err;
-    return cudaGetLastError();
+  const int tiles = (g.B + 3) / 4 * (g.U + (5 * g.U + 3) / 4 + g.U);
+  for (g.KC = 256; g.KC >= 16; g.KC /= 2) {
+    if (g.HP % g.KC) continue;
+    for (g.KS = 1; 2 * g.KS * tiles <= THREADS && g.KC % (32 * g.KS) == 0;) g.KS *= 2;
+    *smem = Layout<W>(g).bytes;
+    if (*smem <= (size_t)limit)
+      return cudaFuncSetAttribute(pu_chain_kernel<W>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
   }
-  return cudaErrorCooperativeLaunchTooLarge;
+  return cudaErrorInvalidValue;       // the weights alone do not fit
+}
+
+template <typename W>
+cudaError_t launch(void** p, Geo g, int barrier_only, cudaStream_t stream) {
+  size_t smem = 0;
+  cudaError_t err = prepare<W>(g, &smem);
+  if (err != cudaSuccess) return err;
+  const float* fh = static_cast<const float*>(p[0]);
+  const float* gp = static_cast<const float*>(p[1]);
+  const W* wpack = static_cast<const W*>(p[2]);
+  const float* bx2f1 = static_cast<const float*>(p[3]);
+  const float* bx2h1 = static_cast<const float*>(p[4]);
+  const float* bh2h1 = static_cast<const float*>(p[5]);
+  float* out = static_cast<float*>(p[6]);
+  W* ops = static_cast<W*>(p[7]);
+  unsigned* counter = static_cast<unsigned*>(p[8]);
+  void* args[] = {&fh, &gp, &wpack, &bx2f1, &bx2h1, &bh2h1, &out, &ops, &counter,
+                  &g, &barrier_only};
+  // cooperative: refused (cudaErrorCooperativeLaunchTooLarge) unless every
+  // block of the grid can be resident at once, which the barrier needs
+  err = cudaLaunchCooperativeKernel((const void*)pu_chain_kernel<W>, dim3(g.H / g.U),
+                                    dim3(THREADS), args, smem, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // Pointers, in order: fh (B,J,H) f32, gates_pre (B,J,4H) f32 incl. the
-// layer-0 h2h bias, Wh2h (4H,H), Wx2f1 (H,H), bx2f1 (H) f32, Wx2h1 (4H,H),
-// bx2h1 (4H) f32, Wh2h1 (4H,H), bh2h1 (4H) f32, out (B,J,H) f32, scratch
-// (6,B,H) f32 zeroed by the caller. Weights are (out, in) row-major in the
-// dtype given by `dtype` (0 = float32, 1 = bfloat16).
-extern "C" int egotap_pu_chain(void* fh, void* gp, void* wh2h, void* wx2f1,
-                               void* bx2f1, void* wx2h1, void* bx2h1,
-                               void* wh2h1, void* bh2h1, void* out,
-                               void* scratch, int b, int j, int hidden,
-                               int dtype, void* stream) {
-  void* p[] = {fh, gp, wh2h, wx2f1, bx2f1, wx2h1, bx2h1, wh2h1, bh2h1, out, scratch};
+// layer-0 h2h bias, the packed weights (H/U, 13U, HP) in the weight dtype
+// (block p's rows: its gate columns of Wh2h (gate-major, 4U), Wx2f1 (U),
+// Wx2h1 (4U), Wh2h1 (4U), each the column's H weights, zero-padded to HP),
+// bx2f1 (H) f32, bx2h1 (4H) f32, bh2h1 (4H) f32, out (B,J,H) f32, the
+// published operands (3, 2, B, HP) in the weight dtype and a counter
+// (uint32), both zeroed by the caller. dtype 0 = float32, 1 = bfloat16.
+extern "C" int egotap_pu_chain(void* fh, void* gp, void* wpack, void* bx2f1,
+                               void* bx2h1, void* bh2h1, void* out, void* ops,
+                               void* counter, int b, int j, int hidden, int hp,
+                               int units, int dtype, int barrier_only,
+                               void* stream) {
+  void* p[] = {fh, gp, wpack, bx2f1, bx2h1, bh2h1, out, ops, counter};
+  const Geo g{b, j, hidden, hp, units, 0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch<float>(p, b, j, hidden, s);
-  if (dtype == 1) return (int)launch<__nv_bfloat16>(p, b, j, hidden, s);
+  if (dtype == 0) return (int)launch<float>(p, g, barrier_only, s);
+  if (dtype == 1) return (int)launch<__nv_bfloat16>(p, g, barrier_only, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// What one block of the kernel for `dtype` takes at this geometry:
+// info[0] = blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// info[1] = registers a thread, info[2] = local (spill) bytes a thread,
+// info[3] = dynamic + static shared memory bytes a block, info[4] =
+// threads a block, info[5] = SMs of the card, info[6] = the k-chunk,
+// info[7] = the k-splits of a tile.
+extern "C" int egotap_pu_chain_occupancy(int dtype, int b, int hidden, int hp,
+                                         int units, int* info) {
+  Geo g{b, 1, hidden, hp, units, 0, 0};
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  const void* kernel = dtype == 0 ? (const void*)pu_chain_kernel<float>
+                                  : (const void*)pu_chain_kernel<__nv_bfloat16>;
+  size_t smem = 0;
+  cudaError_t err = dtype == 0 ? prepare<float>(g, &smem) : prepare<__nv_bfloat16>(g, &smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[0], kernel, THREADS, smem);
+  int dev = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&info[5], cudaDevAttrMultiProcessorCount, dev);
+  info[1] = attr.numRegs;
+  info[2] = (int)attr.localSizeBytes;
+  info[3] = (int)smem + (int)attr.sharedSizeBytes;
+  info[4] = THREADS;
+  info[6] = g.KC;
+  info[7] = g.KS;
+  return (int)err;
 }

@@ -6,11 +6,25 @@ as `kernel_errors` reads them. The max error catches a fault confined
 to a few elements; the rms error catches a small fault spread over all
 of them (a skipped bf16 operand rounding), which one-ulp flips of the
 final bf16 rounding would hide from the max.
+
+The kernels have no backward yet: on the card a wrapper refuses inputs
+that need a gradient (`refuse_grad`) instead of returning an output cut
+off from autograd. On the CPU the plain versions differentiate.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def refuse_grad(what: str, *tensors: torch.Tensor) -> None:
+    """Raise when grad mode is on and any of ``tensors`` requires grad:
+    a kernel's output would carry no ``grad_fn`` (run it under
+    ``torch.no_grad()``, as the serving forward does)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} kernel has no backward: call it under torch.no_grad() "
+            "or with inputs that do not require grad")
 
 
 def kernel_errors(got: torch.Tensor, ref: torch.Tensor):

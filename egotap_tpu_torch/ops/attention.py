@@ -31,7 +31,7 @@ import re
 
 import torch
 
-from egotap_tpu_torch.ops import _build
+from egotap_tpu_torch.ops import _build, refuse_grad
 
 HEAD_DIM = 128            # the kernel's head width
 
@@ -77,6 +77,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("q, k, v must share shape and dtype")
     if q.dtype not in _DTYPE_CODE:
         raise NotImplementedError(f"attention kernel: dtype {q.dtype}")
+    refuse_grad("attention", q, k, v)
     if d != heads * HEAD_DIM or s < 1 or b > 65535:
         raise NotImplementedError(
             f"attention kernel covers head_dim {HEAD_DIM}, S >= 1 and at "

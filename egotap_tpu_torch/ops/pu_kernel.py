@@ -9,16 +9,23 @@ bf16); matrix operands are rounded to that dtype before each product and
 every product accumulates in f32; h/c state and the output are f32.
 
 `pu_chain_fused` runs kernel C (``csrc/pu_chain.cu``) for CUDA tensors
-and `pu_chain_plain` for CPU tensors.
+and `pu_chain_plain` for CPU tensors. The kernel keeps each block's
+weights in shared memory for the whole walk (`pack_weights` lays them
+out) and meets the grid at one barrier per joint; `barrier_walk` runs
+those barriers alone (its latency floor), `kernel_resources` reports
+what a block takes of an SM.
 """
 
 from __future__ import annotations
 
+import ctypes
+import re
 from typing import Dict
 
 import torch
+import torch.nn.functional as F
 
-from egotap_tpu_torch.ops import _build
+from egotap_tpu_torch.ops import _build, refuse_grad
 
 
 def _cell_update(gates: torch.Tensor, c: torch.Tensor):
@@ -63,6 +70,71 @@ def pu_chain_plain(fh: torch.Tensor, gates_pre: torch.Tensor,
 TOL = {torch.float32: (2e-5, 2e-6), torch.bfloat16: (5e-4, 1e-4)}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_GATES = (4, 1, 4, 4)       # rows a unit has in Wh2h, Wx2f1, Wx2h1, Wh2h1
+
+
+def unit_slice(hidden: int, sms: int) -> int:
+    """Hidden units a block of kernel C owns: the smallest U dividing
+    ``hidden`` with at most one block an SM (a cooperative launch needs
+    the whole grid resident, and each block reads every operand whole,
+    so more blocks than SMs buy nothing)."""
+    return next(u for u in range(1, hidden + 1)
+                if hidden % u == 0 and hidden // u <= sms)
+
+
+def padded(hidden: int) -> int:
+    """H padded to a multiple of 16: the kernel's rows of weights and of
+    operands (16-byte copies, 16-wide k steps)."""
+    return -(-hidden // 16) * 16
+
+
+def pack_weights(kernels, units: int) -> torch.Tensor:
+    """The four (in, out) kernels (Wh2h, Wx2f1, Wx2h1, Wh2h1) as kernel C
+    keeps them: (H/U, 13U, HP), block p's rows together, each the H
+    weights of one output column (gate-major within a matrix: column
+    g*H + p*U + i), zero-padded to HP."""
+    hidden = kernels[0].shape[0]
+    n = hidden // units
+    rows = [w.t().reshape(g, n, units, hidden).transpose(0, 1)
+            .reshape(n, g * units, hidden) for w, g in zip(kernels, _GATES)]
+    packed = torch.cat(rows, dim=1)
+    hp = padded(hidden)
+    return F.pad(packed, (0, hp - hidden)) if hp != hidden else packed
+
+
+def _card(device):
+    """(SMs, shared memory bytes a block may opt in to) of the card."""
+    props = torch.cuda.get_device_properties(device)
+    return props.multi_processor_count, props.shared_memory_per_block_optin
+
+
+def _check_fits(hidden: int, wdt: torch.dtype, device) -> int:
+    """U for this card; raises when a block's weights cannot stay in
+    its shared memory."""
+    sms, limit = _card(device)
+    units = unit_slice(hidden, sms)
+    need = 13 * units * (padded(hidden) * wdt.itemsize + 16)
+    if need > limit:
+        raise NotImplementedError(
+            f"PU chain kernel: H={hidden} gives {units} units a block, whose "
+            f"weights ({need} bytes) do not fit its {limit} bytes of shared "
+            "memory")
+    return units
+
+
+def _launch(fh, gp, wpack, biases, b, J, hidden, units, wdt, barrier_only):
+    dev = fh.device
+    out = torch.empty(b, J, hidden, dtype=torch.float32, device=dev)
+    ops = torch.zeros(3, 2, b, padded(hidden), dtype=wdt, device=dev)
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    lib = _build.library("pu_chain")
+    _build.check(lib.egotap_pu_chain(
+        fh.data_ptr(), gp.data_ptr(), wpack.data_ptr(),
+        *(x.data_ptr() for x in biases), out.data_ptr(), ops.data_ptr(),
+        counter.data_ptr(), b, J, hidden, padded(hidden), units,
+        _DTYPE_CODE[wdt], int(barrier_only), _build.stream_ptr(fh)),
+        "pu_chain")
+    return out
 
 
 def pu_chain_fused(fh: torch.Tensor, gates_pre: torch.Tensor,
@@ -73,43 +145,80 @@ def pu_chain_fused(fh: torch.Tensor, gates_pre: torch.Tensor,
     fh: (B, J, H) layer-0 h-forget gates; gates_pre: (B, J, 4H) layer-0
     preactivations incl. the h2h bias; cell0_h2h_kernel: (H, 4H); cell1:
     ``{"x2f"|"x2h"|"h2h": {"kernel": (H, n), "bias": (n,)}}`` of the
-    bridge-less top cell. Returns (B, J, H) top-layer h per step, f32."""
+    bridge-less top cell. Returns (B, J, H) top-layer h per step, f32.
+    On the card it needs inputs that do not require grad, or grad mode
+    off (the kernel has no backward yet)."""
     if fh.device.type == "cpu":
         return pu_chain_plain(fh, gates_pre, cell0_h2h_kernel, cell1)
     wdt = cell0_h2h_kernel.dtype
     if wdt not in _DTYPE_CODE:
         raise NotImplementedError(f"PU chain kernel: weight dtype {wdt}")
+    refuse_grad("PU chain", fh, gates_pre, cell0_h2h_kernel,
+                *(t for c in cell1.values() for t in c.values()))
     b, J, H = fh.shape
     if gates_pre.shape != (b, J, 4 * H):
         raise ValueError(f"gates_pre {tuple(gates_pre.shape)} != {(b, J, 4 * H)}")
-
-    def weight(w, n_out):
-        # (in, out) -> the kernel's (out, in) rows; a transposed view of a
-        # PyTorch Linear weight is already contiguous that way
-        if w.dtype != wdt or tuple(w.shape) != (H, n_out):
+    kernels = [cell0_h2h_kernel] + [cell1[n]["kernel"]
+                                    for n in ("x2f", "x2h", "h2h")]
+    for w, g in zip(kernels, _GATES):
+        if w.dtype != wdt or tuple(w.shape) != (H, g * H):
             raise ValueError(f"PU weight {tuple(w.shape)} {w.dtype}: "
-                             f"expected {(H, n_out)} {wdt}")
-        return w.t().contiguous()
+                             f"expected {(H, g * H)} {wdt}")
+    if b < 1 or J < 1:
+        raise NotImplementedError(f"PU chain kernel: B={b}, J={J}")
+    units = _check_fits(H, wdt, fh.device)
 
     def f32(x):
         return x.float().contiguous()
-
-    w0 = weight(cell0_h2h_kernel, 4 * H)
-    wx2f = weight(cell1["x2f"]["kernel"], H)
-    wx2h = weight(cell1["x2h"]["kernel"], 4 * H)
-    wh2h = weight(cell1["h2h"]["kernel"], 4 * H)
-    bx2f, bx2h, bh2h = (f32(cell1[n]["bias"]) for n in ("x2f", "x2h", "h2h"))
-    fh, gates_pre = f32(fh), f32(gates_pre)
-    out = torch.empty(b, J, H, dtype=torch.float32, device=fh.device)
-    scratch = torch.zeros(6, b, H, dtype=torch.float32, device=fh.device)
-    lib = _build.library("pu_chain")
-    _build.check(lib.egotap_pu_chain(
-        fh.data_ptr(), gates_pre.data_ptr(), w0.data_ptr(), wx2f.data_ptr(),
-        bx2f.data_ptr(), wx2h.data_ptr(), bx2h.data_ptr(), wh2h.data_ptr(),
-        bh2h.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, J, H,
-        _DTYPE_CODE[wdt], _build.stream_ptr(fh)), "pu_chain")
+    biases = [f32(cell1[n]["bias"]) for n in ("x2f", "x2h", "h2h")]
+    out = _launch(f32(fh), f32(gates_pre), pack_weights(kernels, units),
+                  biases, b, J, H, units, wdt, barrier_only=False)
     pu_chain_fused.launches += 1
     return out
 
 
 pu_chain_fused.launches = 0
+
+
+def barrier_walk(b: int, J: int, hidden: int, dtype: torch.dtype,
+                 device) -> None:
+    """Launch kernel C's walk with its J + 1 grid barriers and nothing
+    else, at the geometry of (B, J, H) in ``dtype``: the kernel's latency
+    floor (needs the card; not counted as a launch of the chain)."""
+    units = _check_fits(hidden, dtype, device)
+    dummy = torch.zeros(1, device=device)
+    wpack = torch.zeros(1, dtype=dtype, device=device)
+    _launch(dummy.expand(b, J, hidden), dummy, wpack, [dummy] * 3, b, J,
+            hidden, units, dtype, barrier_only=True)
+
+
+def kernel_resources(dtype: torch.dtype, b: int, hidden: int) -> dict:
+    """What kernel C in ``dtype`` takes of an SM at (B, H) (needs the
+    card): ``registers``, ``spill_store_bytes``, ``spill_load_bytes`` from
+    ``ptxas -v`` in the build log; from the runtime ``blocks_per_sm``,
+    ``runtime_registers``, ``local_bytes``, ``smem_bytes`` a block,
+    ``threads`` a block and ``sms``; the launch's ``blocks``, ``units`` a
+    block, k-chunk ``kc`` and k-splits ``ks``."""
+    tag = {torch.float32: "pu_chain_kernelIf",
+           torch.bfloat16: "pu_chain_kernelI13__nv_bfloat16"}[dtype]
+    log = _build.build_log("pu_chain")
+    entry = [part for part in log.split("Compiling entry function")
+             if tag in part.split("\n", 1)[0]]
+    if len(entry) != 1:
+        raise RuntimeError(f"the build log holds no single {tag}:\n{log}")
+
+    def read(pattern):
+        found = re.search(pattern, entry[0])
+        return int(found.group(1)) if found else 0
+    units = unit_slice(hidden, _card(torch.device("cuda"))[0])
+    info = (ctypes.c_int * 8)()
+    _build.check(_build.library("pu_chain").egotap_pu_chain_occupancy(
+        _DTYPE_CODE[dtype], b, hidden, padded(hidden), units,
+        ctypes.addressof(info)), "pu_chain occupancy")
+    return {"registers": read(r"Used (\d+) registers"),
+            "spill_store_bytes": read(r"(\d+) bytes spill stores"),
+            "spill_load_bytes": read(r"(\d+) bytes spill loads"),
+            "blocks_per_sm": info[0], "runtime_registers": info[1],
+            "local_bytes": info[2], "smem_bytes": info[3],
+            "threads": info[4], "sms": info[5], "kc": info[6],
+            "ks": info[7], "units": units, "blocks": hidden // units}

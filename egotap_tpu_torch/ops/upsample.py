@@ -18,7 +18,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from egotap_tpu_torch.ops import _build
+from egotap_tpu_torch.ops import _build, refuse_grad
 
 
 @functools.lru_cache(maxsize=None)
@@ -72,6 +72,7 @@ def upsample2x_align_corners(x: torch.Tensor) -> torch.Tensor:
         return upsample2x_plain(x)
     if x.dtype not in _VEC:
         raise NotImplementedError(f"upsample kernel: dtype {x.dtype}")
+    refuse_grad("upsample", x)
     vec, code = _VEC[x.dtype]
     h, w, c = x.shape[-3:]
     if c % vec:

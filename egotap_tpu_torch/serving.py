@@ -166,8 +166,8 @@ class Predictor:
         return any(isinstance(m, Calibrated) and m.a_scale is not None
                    for net in self.nets for m in net.modules())
 
-    def _heatmap_stack(self, rgb: torch.Tensor) -> torch.Tensor:
-        x = rgb.to(self.dtype)
+    def _heatmap_stack(self, rgb: torch.Tensor, dtype=None) -> torch.Tensor:
+        x = rgb.to(dtype or self.dtype)
         return torch.cat([self.pos_net(x), self.rot_net(x)], dim=-1)
 
     @torch.no_grad()
@@ -182,9 +182,16 @@ class Predictor:
 
     @torch.no_grad()
     def heatmaps(self, rgb) -> np.ndarray:
-        """Debug path: the concatenated stage-1 heatmap stack, in the
-        predictor's compute dtype, returned as f32."""
-        hm = self._heatmap_stack(torch.as_tensor(rgb).to(self.device))
+        """Debug path: the concatenated stage-1 heatmap stack, f32.
+
+        As `egotap_tpu/serving.py:Predictor.heatmaps`, the nets run on the
+        f32 input uncast, so every op computes in f32 also when ``bf16``
+        is set. One difference stays: a bf16 predictor stores its conv
+        weights rounded to bf16 (`cast_matmul_weights`), where JAX keeps
+        f32 parameters, so its f32 stack is computed with bf16-rounded
+        weights (tests/test_torch_predictor.py states the budget)."""
+        hm = self._heatmap_stack(torch.as_tensor(rgb).to(self.device),
+                                 torch.float32)
         return hm.float().cpu().numpy()
 
     @classmethod

@@ -146,26 +146,72 @@ def test_upsample_matches_plain_5d(gen, dtype):
     _close(got, up.upsample2x_plain(x), up.TOL[dt])
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_pu_chain_matches_plain_small(gen, dtype):
-    """H=128: one hidden unit per block, where the main path's H=512
-    gives each block four."""
-    dt = getattr(torch, dtype)
-    b, j, h = 8, 5, 128
-
+def _pu_inputs(gen, b, j, h, dt):
     def u(*shape):
         return (torch.rand(shape, generator=gen, device="cuda") * 2 - 1
                 ) * h ** -0.5
     fh = torch.sigmoid(torch.randn(b, j, h, generator=gen, device="cuda"))
     gp = 0.5 * torch.randn(b, j, 4 * h, generator=gen, device="cuda")
-    w0 = u(h, 4 * h).to(dt)
     cell1 = {n: {"kernel": u(h, m).to(dt), "bias": u(m)}
              for n, m in (("x2f", h), ("x2h", 4 * h), ("h2h", 4 * h))}
+    return fh, gp, u(h, 4 * h).to(dt), cell1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,j,h", [(1, 1, 128), (5, 2, 128), (8, 5, 128),
+                                   (32, 15, 512), (33, 17, 512)])
+def test_pu_chain_matches_plain_small(gen, b, j, h, dtype):
+    """H=128: one hidden unit per block; 512: the lifter's four. B=1, 5
+    and 33 leave ragged row tiles; J=1 is fill and drain alone; J=15 and
+    17 walk long enough for a stale operand (an L1 hit on another block's
+    slot, a wrong buffer) to show."""
+    dt = getattr(torch, dtype)
+    args = _pu_inputs(gen, b, j, h, dt)
     before = pu_kernel.pu_chain_fused.launches
-    got = pu_kernel.pu_chain_fused(fh, gp, w0, cell1)
+    got = pu_kernel.pu_chain_fused(*args)
     assert pu_kernel.pu_chain_fused.launches == before + 1
-    _close(got, pu_kernel.pu_chain_plain(fh, gp, w0, cell1),
-           pu_kernel.TOL[dt])
+    assert got.shape == (b, j, h) and torch.isfinite(got).all()
+    _close(got, pu_kernel.pu_chain_plain(*args), pu_kernel.TOL[dt])
+
+
+def test_pu_chain_refusals(gen):
+    """float16 weights, and an H whose smallest whole unit slice within
+    the SM count (H = 137, prime: one block of 137 units) leaves a block
+    more weights than its shared memory holds; nothing launches."""
+    before = pu_kernel.pu_chain_fused.launches
+    args = _pu_inputs(gen, 2, 3, 128, torch.float16)
+    with pytest.raises(NotImplementedError):
+        pu_kernel.pu_chain_fused(*args)
+    with pytest.raises(NotImplementedError):
+        pu_kernel.pu_chain_fused(*_pu_inputs(gen, 2, 3, 137, torch.float32))
+    assert pu_kernel.pu_chain_fused.launches == before
+
+
+def test_pu_chain_refuses_grad(gen):
+    """With grad mode on, an input that requires grad is refused (the
+    kernel has no backward); under no_grad the same call launches."""
+    fh, gp, w0, cell1 = _pu_inputs(gen, 4, 3, 128, torch.bfloat16)
+    w0.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        pu_kernel.pu_chain_fused(fh, gp, w0, cell1)
+    with torch.no_grad():
+        got = pu_kernel.pu_chain_fused(fh, gp, w0, cell1)
+    assert got.grad_fn is None and torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pu_chain_kernel_resources(gen, dtype):
+    """At the lifter's (B, H) = (32, 512): the build log and the runtime
+    agree on the registers, nothing spills, and the H/U blocks of 4 units
+    are co-resident (one an SM); the barrier-only walk runs."""
+    dt = getattr(torch, dtype)
+    res = pu_kernel.kernel_resources(dt, 32, 512)
+    assert res["registers"] == res["runtime_registers"] > 0
+    assert res["spill_store_bytes"] == res["local_bytes"] == 0, res
+    assert res["units"] == 4 and res["blocks"] == 128, res
+    assert res["blocks_per_sm"] >= 1 and res["blocks"] <= res["sms"], res
+    pu_kernel.barrier_walk(32, 15, 512, dt, "cuda")
+    torch.cuda.synchronize()
 
 
 def test_uncovered_shapes_raise(gen):

@@ -13,7 +13,7 @@ from egotap_tpu_torch.compat.from_jax import (heatmap_net_state_dict,
 from egotap_tpu_torch.ops.quant import Calibrated
 from egotap_tpu_torch.serving import Predictor, serving_config
 from tests.test_torch_compat import heatmap_vars, lifter_vars
-from tests.test_torch_quant import FORCED_TOL, CodeTape
+from tests.test_torch_quant import FLIP_RATE, FORCED_TOL, CodeTape
 
 SMALL = dict(num_heatmap=4, num_rot_heatmap=4, ae_hidden_size=32,
              load_size_heatmap=(16, 16))
@@ -57,13 +57,22 @@ def test_matches_jax_predictor(weights, rgb, dtype):
     assert np.abs(got - ref).max() <= TOL[dtype] * np.abs(ref).max()
 
 
-def test_heatmaps_match_jax(weights, rgb):
+# `heatmaps` runs the nets on the f32 input, as JAX's does, also with
+# bf16=True. f32: same math, other summation orders. bf16: the port's
+# bf16 predictor stores its conv weights rounded to bf16, JAX keeps them
+# in f32, so the two f32 stacks differ by that rounding (read 5.6e-3 of
+# max); the limit is the bf16 heatmap net's (tests/test_torch_heatmap_net.py)
+HEATMAP_TOL = {False: 1e-5, True: 2e-2}
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_heatmaps_match_jax(weights, rgb, bf16):
     jax_vars, states = weights
-    ref = _jax_predictor(jax_vars, bf16=False).heatmaps(rgb)
-    got = Predictor(serving_config(**SMALL), *states, bf16=False,
+    ref = _jax_predictor(jax_vars, bf16=bf16).heatmaps(rgb)
+    got = Predictor(serving_config(**SMALL), *states, bf16=bf16,
                     device="cpu").heatmaps(rgb)
     assert got.shape == ref.shape == (2, 16, 16, 2 * 4 + 2 * 8)
-    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+    assert np.abs(got - ref).max() <= HEATMAP_TOL[bf16] * np.abs(ref).max()
 
 
 def test_from_reference_checkpoints(weights, rgb, tmp_path):
@@ -97,27 +106,40 @@ def test_seeded_random_weights_are_reproducible(rgb):
     np.testing.assert_array_equal(out, b(rgb))
 
 
-# The calibrated int8 Predictor against JAX's (f32 compute, both int8
-# flags), calibration included. JAX runs it jitted, where XLA multiplies
-# by 1/127 instead of dividing, so now and then an int8 code lands one
-# step off the port's, and a flip cascades through the lifter to a few %
-# of the pose (tests/test_torch_quant.py). `CodeTape` holds every code
-# array of both calibration batches and of the request against JAX's
-# (read: 49 of 9.4M codes one step off) and goes on with JAX's: the
-# static scales then agree to SCALE_RTOL (read 7.9e-7: max|x| / 127 of
-# inputs that agree to float rounding), and the poses to FORCED_TOL.
-SCALE_RTOL = 1e-5
+# The calibrated int8 Predictor against JAX's (both int8 flags),
+# calibration included, in f32 and in the serving configuration's bf16.
+# JAX runs it jitted, where XLA multiplies by 1/127 instead of dividing,
+# so now and then an int8 code lands one step off the port's, and a flip
+# cascades through the lifter to a few % of the pose
+# (tests/test_torch_quant.py). `CodeTape` holds every code array of both
+# calibration batches and of the request against JAX's and goes on with
+# JAX's. f32 (read: 49 of 9.4M codes one step off): the static scales
+# agree to 1e-5 (read 7.9e-7: max|x| / 127 of inputs that agree to float
+# rounding), the poses to FORCED_TOL (read 2.4e-7). bf16: XLA's and
+# PyTorch's CPU bf16 convolutions round differently (the bf16 heatmap
+# net's outputs differ in about three quarters of their elements, as
+# jitted JAX's differ from op-by-op JAX's), and one bf16 ulp at the top of a tensor's
+# range is one int8 step: read at most 2 steps off, in at most 22.8% of
+# one call's codes, scales 8.8e-3 apart (about 2 bf16 ulps), poses 4.7e-3
+# of max; the limits below are 1.5-4 times that, and the pose's is the
+# bf16 Predictor's (TOL).
+INT8_LIMITS = {  # bf16: (codes: share, step; scales rtol; pose of max)
+    False: (FLIP_RATE, 1, 1e-5, FORCED_TOL),
+    True: (0.35, 3, 2e-2, TOL["bfloat16"]),
+}
 
 
-def test_calibrated_int8_matches_jax(weights, rgb, monkeypatch):
+@pytest.mark.parametrize("bf16", [False, True])
+def test_calibrated_int8_matches_jax(weights, rgb, monkeypatch, bf16):
     jax_vars, states = weights
+    flip_rate, max_step, scale_rtol, pose_tol = INT8_LIMITS[bf16]
     calib = [rgb + 0.1 * np.random.default_rng(10 + i).standard_normal(
         rgb.shape).astype(np.float32) for i in range(2)]
-    tape = CodeTape(monkeypatch)
-    jax_pred = _jax_predictor(jax_vars, bf16=False, int8=True)
+    tape = CodeTape(monkeypatch, flip_rate, max_step)
+    jax_pred = _jax_predictor(jax_vars, bf16=bf16, int8=True)
     jax_pred.calibrate(calib)
     ref = jax_pred(rgb)
-    pred = Predictor(serving_config(**SMALL), *states, bf16=False, int8=True,
+    pred = Predictor(serving_config(**SMALL), *states, bf16=bf16, int8=True,
                      device="cpu")
     assert not pred._has_static_scales()
     pred.calibrate(calib)
@@ -129,11 +151,11 @@ def test_calibrated_int8_matches_jax(weights, rgb, monkeypatch):
         assert sorted(got) == sorted(want)
         for name in want:
             np.testing.assert_allclose(got[name], want[name],
-                                       rtol=SCALE_RTOL, err_msg=name)
+                                       rtol=scale_rtol, err_msg=name)
     got = pred(rgb)
     tape.check_all_used()
     assert got.shape == ref.shape == (2, 5, 3) and np.isfinite(got).all()
-    assert np.abs(got - ref).max() <= FORCED_TOL * np.abs(ref).max()
+    assert np.abs(got - ref).max() <= pose_tol * np.abs(ref).max()
 
 
 def test_int8_follows_the_config_flags(weights):
