@@ -20,10 +20,10 @@
 // H/U blocks; block p owns hidden units [p*U, (p+1)*U) and all four
 // gates of them, so it applies their cell updates itself, and their c0,
 // c1, h1 and pending layer-1 gates live in its shared memory.
-// - Weights stay in shared memory for the whole walk: the wrapper packs
-//   the 13U rows a block needs (its gate columns of Wh2h, Wx2f1, Wx2h1,
-//   Wh2h1, each a row of H) contiguously, and the block loads them once
-//   by cp.async (53 KB bf16, 107 KB f32 at H=512, U=4).
+// - Weights stay in shared memory for the whole walk: the block loads its
+//   13U rows once by cp.async (its gate columns of Wh2h, Wx2f1, Wx2h1,
+//   Wh2h1, each a row of H in the (out, in) layout of a PyTorch Linear;
+//   53 KB bf16, 107 KB f32 at H=512, U=4).
 // - One grid barrier per interval instead of two per joint. Layer 0 of
 //   joint u needs only h0(u-1), so it runs beside layer 1 of the joints
 //   before it: in interval u (u = 0 .. J+1) every block runs three
@@ -42,10 +42,14 @@
 //   by cp.async.cg, from L2, never through the SM's L1.
 // - Each product's A operand goes through a ring of k-chunks (all three
 //   operands of a chunk in one stage) by cp.async, under the compute of
-//   the chunk before. Outputs are 4 x 4 register tiles (4 batch rows x 4
-//   gate columns of one product), split over k across the threads; each
-//   tile's partial sums are added into shared memory per chunk and the
-//   k-splits summed in a fixed order (deterministic).
+//   the chunk before. bf16 products run on the tensor cores
+//   (mma.sync.m16n8k16, a warp's tile of 16 batch rows x 8 columns of one
+//   product in two accumulator chains, fragments by ldmatrix); f32 ones
+//   on the CUDA cores in 4 x 4 register tiles (a thread's 4 batch rows x
+//   4 columns), TF32-free. The tiles are split over k; each split's sums
+//   start afresh per chunk and are added into shared memory (the tensor
+//   cores' f32 sums drift over long chains), and the splits are summed
+//   in a fixed order.
 // - The barrier is a counter in global memory: one arrive (release) and
 //   one acquiring spin by one thread a block, between two __syncthreads.
 // With `barrier_only` the walk runs its barriers and nothing else: that
@@ -110,6 +114,7 @@ constexpr int NST = 2;          // stages of the operand ring
 // KC and KS from `prepare`
 struct Geo {
   int B, J, H, HP, U;           // HP: H padded to a multiple of 16
+  int WL;                       // row pitch of the weights (H or HP)
   int KC, KS;                   // k-chunk of the ring; k-splits of a tile
 };
 
@@ -128,16 +133,154 @@ template <typename W> struct Layout {
   }
 };
 
+// ---- one k-chunk of the three products, added into P[ks][b][column].
+// Product p (0: Wh2h on a0, 1: Wx2f1|Wx2h1 on x, 2: Wh2h1 on a1) has
+// width 4U, 5U, 4U and its weights at rows 0, 4U, 9U of the block's 13U.
+// Its k-range [c*KC, (c+1)*KC) is cut into KS splits, each summed on its
+// own and added into its own plane of P (fresh sums per chunk and split).
+__device__ __forceinline__ void product_of(int grp, int n0, int n1, int U, int n,
+                                           int& p, int& cb, int& width, int& row0) {
+  if (grp < n0) { p = 0; cb = n * grp; width = 4 * U; row0 = 0; }
+  else if (grp < n0 + n1) { p = 1; cb = n * (grp - n0); width = 5 * U; row0 = 4 * U; }
+  else { p = 2; cb = n * (grp - n0 - n1); width = 4 * U; row0 = 9 * U; }
+}
+
+// f32: on the CUDA cores, a thread's 4 x 4 register tile of batch rows
+// rg + RG*i and columns cb + j of one product, over its k-split
+__device__ void chunk_products(const float* As, const float* Wsm, float* P, int ap,
+                               int wp, int B, int U, int c, int KC, int KS) {
+  const int n0 = U, n1 = (5 * U + 3) / 4;
+  const int RG = (B + 3) / 4;
+  const int tiles = RG * (n0 + n1 + U), ksl = KC / KS, NCOL = 13 * U;
+  for (int it = threadIdx.x; it < tiles * KS; it += THREADS) {
+    const int ks = it / tiles, tile = it % tiles, rg = tile % RG;
+    int p, cb, width, row0;
+    product_of(tile / RG, n0, n1, U, 4, p, cb, width, row0);
+    const float* a[4];
+    const float* w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      a[i] = As + (size_t)(p * B + min(rg + RG * i, B - 1)) * ap + ks * ksl;
+      w[i] = Wsm + (size_t)(row0 + min(cb + i, width - 1)) * wp + c * KC + ks * ksl;
+    }
+    float acc[4][4] = {};
+    for (int kk = 0; kk < ksl; kk += 4) {
+      float av[4][4], wv[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) { load4(a[i] + kk, av[i]); load4(w[i] + kk, wv[i]); }
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i][q], wv[j][q], acc[i][j]);
+    }
+    float* Pk = P + (size_t)ks * B * NCOL;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = rg + RG * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (r >= B || cb + j >= width) continue;
+        float* dst = Pk + (size_t)r * NCOL + row0 + cb + j;
+        *dst = c == 0 ? acc[i][j] : *dst + acc[i][j];
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t r[2], const void* p) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(s));
+}
+__device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// bf16: on the tensor cores, a warp's m16n8k16 tile of 16 batch rows x 8
+// columns of one product over its k-split, fragments by ldmatrix (rows
+// past B or past the product's width read a clamped row, never stored)
+__device__ void chunk_products(const __nv_bfloat16* As, const __nv_bfloat16* Wsm,
+                               float* P, int ap, int wp, int B, int U, int c,
+                               int KC, int KS) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n0 = (4 * U + 7) / 8, n1 = (5 * U + 7) / 8;
+  const int MT = (B + 15) / 16;
+  const int tiles = MT * (2 * n0 + n1), ksl = KC / KS, NCOL = 13 * U;
+  for (int it = warp; it < tiles * KS; it += THREADS / 32) {
+    const int ks = it / tiles, tile = it % tiles, mt = tile % MT;
+    int p, cb, width, row0;
+    product_of(tile / MT, n0, n1, U, 8, p, cb, width, row0);
+    const __nv_bfloat16* a =
+        As + (size_t)(p * B + min(16 * mt + (lane & 15), B - 1)) * ap + ks * ksl + (lane >> 4) * 8;
+    const __nv_bfloat16* w = Wsm + (size_t)(row0 + min(cb + (lane & 7), width - 1)) * wp +
+                             c * KC + ks * ksl + ((lane >> 3) & 1) * 8;
+    // two accumulator chains (even and odd 16-k steps), added at the end:
+    // each half as long, so its f32 sums drift less
+    float d[4] = {0.f, 0.f, 0.f, 0.f}, e[4] = {0.f, 0.f, 0.f, 0.f};
+    int kk = 0;
+    for (; kk + 32 <= ksl; kk += 32) {
+      uint32_t af[4], bf[2], ag[4], bg[2];
+      ldsm_x4(af, a + kk);
+      ldsm_x2(bf, w + kk);
+      ldsm_x4(ag, a + kk + 16);
+      ldsm_x2(bg, w + kk + 16);
+      mma_bf16(d, af, bf);
+      mma_bf16(e, ag, bg);
+    }
+    if (kk < ksl) {
+      uint32_t af[4], bf[2];
+      ldsm_x4(af, a + kk);
+      ldsm_x2(bf, w + kk);
+      mma_bf16(d, af, bf);
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) d[q] += e[q];
+    float* Pk = P + (size_t)ks * B * NCOL;
+    const int col = cb + 2 * (lane & 3);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * mt + (lane >> 2) + 8 * h;
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        if (r >= B || col + q >= width) continue;
+        float* dst = Pk + (size_t)r * NCOL + row0 + col + q;
+        *dst = c == 0 ? d[2 * h + q] : *dst + d[2 * h + q];
+      }
+    }
+  }
+}
+
+// work items of a chunk (before the k-split) and how many the block takes
+// at once: threads for the f32 tiles, four a warp for the bf16 ones
+template <typename W> int work_tiles(int B, int U) {
+  return sizeof(W) == 4 ? (B + 3) / 4 * (U + (5 * U + 3) / 4 + U)
+                        : (B + 15) / 16 * (2 * ((4 * U + 7) / 8) + (5 * U + 7) / 8);
+}
+template <typename W> int work_slots() { return sizeof(W) == 4 ? THREADS : 4 * THREADS / 32; }
+
 template <typename W>
 __global__ void __launch_bounds__(THREADS, 1)
 pu_chain_kernel(const float* __restrict__ fh, const float* __restrict__ gp,
-                const W* __restrict__ wpack, const float* __restrict__ bx2f1,
+                const W* __restrict__ w0, const W* __restrict__ wx2f1,
+                const W* __restrict__ wx2h1, const W* __restrict__ wh2h1,
+                const float* __restrict__ bx2f1,
                 const float* __restrict__ bx2h1, const float* __restrict__ bh2h1,
                 float* __restrict__ out, W* ops, unsigned* counter, Geo g,
                 int barrier_only) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout<W> L(g);
-  const int B = g.B, J = g.J, H = g.H, HP = g.HP, U = g.U;
+  const int B = g.B, J = g.J, H = g.H, HP = g.HP, U = g.U, wld = g.WL;
   const int tid = threadIdx.x;
   const int u0 = blockIdx.x * U;
   const unsigned nblk = gridDim.x;
@@ -157,16 +300,22 @@ pu_chain_kernel(const float* __restrict__ fh, const float* __restrict__ gp,
   float* bias = pend + B * 4 * U;            // bx2f1 (U), bx2h1 (4U), bh2h1 (4U)
   const int NCOL = 13 * U;
 
-  // ---- weights, once: 13U rows of HP from this block's packed segment
+  // ---- weights, once: row r of the block's 13U is gate r/U (of its
+  // matrix) of unit u0 + r%U, the first wld values by cp.async, then
+  // zeros up to HP
   {
-    const W* src = wpack + (size_t)blockIdx.x * NCOL * HP;
-    const int vpr = HP * (int)sizeof(W) / 16;              // 16-byte vectors a row
+    const int vpr = wld * (int)sizeof(W) / 16;             // 16-byte vectors a row
     for (int i = tid; i < NCOL * vpr; i += THREADS) {
       const int r = i / vpr, v = i % vpr;
+      const W* m = r < 4 * U ? w0 : r < 5 * U ? wx2f1 : r < 9 * U ? wx2h1 : wh2h1;
+      const int rr = r < 4 * U ? r : r < 5 * U ? r - 4 * U : r < 9 * U ? r - 5 * U : r - 9 * U;
+      const W* src = m + (size_t)(rr / U * H + u0 + rr % U) * wld;
       cp_async16(reinterpret_cast<unsigned char*>(Wsm + (size_t)r * L.wp) + 16 * v,
-                 reinterpret_cast<const unsigned char*>(src + (size_t)r * HP) + 16 * v);
+                 reinterpret_cast<const unsigned char*>(src) + 16 * v);
     }
     cp_async_commit();
+    for (int i = tid; i < NCOL * (HP - wld); i += THREADS)
+      Wsm[(size_t)(i / (HP - wld)) * L.wp + wld + i % (HP - wld)] = from_f<W>(0.f);
   }
   for (int i = tid; i < B * 7 * U; i += THREADS) c0[i] = 0.f;   // c0, c1, h1, pend
   for (int i = tid; i < 4 * U; i += THREADS) {
@@ -176,12 +325,6 @@ pu_chain_kernel(const float* __restrict__ fh, const float* __restrict__ gp,
     bias[5 * U + i] = bh2h1[at];
   }
 
-  // column groups of 4: product p has widths 4U, 5U, 4U at rows 0, 4U, 9U
-  const int ng0 = U, ng1 = (5 * U + 3) / 4, ngroups = ng0 + ng1 + U;
-  const int RG = (B + 3) / 4;                // row groups: rows rg + RG*i
-  const int tiles = RG * ngroups;
-  const int items = tiles * g.KS;
-  const int ksl = g.KC / g.KS;               // k of one split within a chunk
   const int nch = HP / g.KC;
   const int64_t slot_elems = (int64_t)B * HP;   // ops: [3][2][B][HP]
 
@@ -208,46 +351,7 @@ pu_chain_kernel(const float* __restrict__ fh, const float* __restrict__ gp,
       cp_async_wait<1>();
       __syncthreads();
       const W* As = Asm + (size_t)(c % NST) * 3 * B * L.ap;
-      for (int it = tid; it < items; it += THREADS) {
-        const int ks = it / tiles, tile = it % tiles;
-        const int rg = tile % RG, grp = tile / RG;
-        int p, cb, width, row0;
-        if (grp < ng0) { p = 0; cb = 4 * grp; width = 4 * U; row0 = 0; }
-        else if (grp < ng0 + ng1) { p = 1; cb = 4 * (grp - ng0); width = 5 * U; row0 = 4 * U; }
-        else { p = 2; cb = 4 * (grp - ng0 - ng1); width = 4 * U; row0 = 9 * U; }
-        const W* a[4];
-        const W* w[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = min(rg + RG * i, B - 1);
-          a[i] = As + (size_t)(p * B + r) * L.ap + ks * ksl;
-          w[i] = Wsm + (size_t)(row0 + min(cb + i, width - 1)) * L.wp + c * g.KC + ks * ksl;
-        }
-        float acc[4][4] = {};
-        for (int kk = 0; kk < ksl; kk += 4) {
-          float av[4][4], wv[4][4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) { load4(a[i] + kk, av[i]); load4(w[i] + kk, wv[i]); }
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-              for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i][q], wv[j][q], acc[i][j]);
-        }
-        float* Pk = P + (size_t)ks * B * NCOL;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = rg + RG * i;
-          if (r >= B) continue;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            if (cb + j >= width) continue;
-            float* dst = Pk + (size_t)r * NCOL + row0 + cb + j;
-            *dst = c == 0 ? acc[i][j] : *dst + acc[i][j];
-          }
-        }
-      }
+      chunk_products(As, Wsm, P, L.ap, L.wp, B, U, c, g.KC, g.KS);
       __syncthreads();                       // the slot is refilled next
     }
     // ---- the k-splits summed in order, into split 0
@@ -306,7 +410,7 @@ pu_chain_kernel(const float* __restrict__ fh, const float* __restrict__ gp,
 
 bool valid(const Geo& g) {
   return g.B >= 1 && g.J >= 1 && g.U >= 1 && g.H % g.U == 0 && g.HP % 16 == 0 &&
-         g.HP >= g.H;
+         g.HP >= g.H && (g.WL == g.H || g.WL == g.HP);
 }
 
 // The largest k-chunk (<= 256, dividing HP) whose layout fits the card's
@@ -314,16 +418,17 @@ bool valid(const Geo& g) {
 // g.KC, g.KS and the block's shared memory bytes.
 template <typename W>
 cudaError_t prepare(Geo& g, size_t* smem) {
-  if (!valid(g)) return cudaErrorInvalidValue;
+  if (!valid(g) || g.WL * sizeof(W) % 16) return cudaErrorInvalidValue;
   int dev = 0, limit = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  const int tiles = (g.B + 3) / 4 * (g.U + (5 * g.U + 3) / 4 + g.U);
+  const int tiles = work_tiles<W>(g.B, g.U);
   for (g.KC = 256; g.KC >= 16; g.KC /= 2) {
     if (g.HP % g.KC) continue;
-    for (g.KS = 1; 2 * g.KS * tiles <= THREADS && g.KC % (32 * g.KS) == 0;) g.KS *= 2;
+    for (g.KS = 1; 2 * g.KS * tiles <= work_slots<W>() && g.KC % (32 * g.KS) == 0;)
+      g.KS *= 2;
     *smem = Layout<W>(g).bytes;
     if (*smem <= (size_t)limit)
       return cudaFuncSetAttribute(pu_chain_kernel<W>,
@@ -339,15 +444,18 @@ cudaError_t launch(void** p, Geo g, int barrier_only, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   const float* fh = static_cast<const float*>(p[0]);
   const float* gp = static_cast<const float*>(p[1]);
-  const W* wpack = static_cast<const W*>(p[2]);
-  const float* bx2f1 = static_cast<const float*>(p[3]);
-  const float* bx2h1 = static_cast<const float*>(p[4]);
-  const float* bh2h1 = static_cast<const float*>(p[5]);
-  float* out = static_cast<float*>(p[6]);
-  W* ops = static_cast<W*>(p[7]);
-  unsigned* counter = static_cast<unsigned*>(p[8]);
-  void* args[] = {&fh, &gp, &wpack, &bx2f1, &bx2h1, &bh2h1, &out, &ops, &counter,
-                  &g, &barrier_only};
+  const W* w0 = static_cast<const W*>(p[2]);
+  const W* wx2f1 = static_cast<const W*>(p[3]);
+  const W* wx2h1 = static_cast<const W*>(p[4]);
+  const W* wh2h1 = static_cast<const W*>(p[5]);
+  const float* bx2f1 = static_cast<const float*>(p[6]);
+  const float* bx2h1 = static_cast<const float*>(p[7]);
+  const float* bh2h1 = static_cast<const float*>(p[8]);
+  float* out = static_cast<float*>(p[9]);
+  W* ops = static_cast<W*>(p[10]);
+  unsigned* counter = static_cast<unsigned*>(p[11]);
+  void* args[] = {&fh, &gp, &w0, &wx2f1, &wx2h1, &wh2h1, &bx2f1, &bx2h1, &bh2h1,
+                  &out, &ops, &counter, &g, &barrier_only};
   // cooperative: refused (cudaErrorCooperativeLaunchTooLarge) unless every
   // block of the grid can be resident at once, which the barrier needs
   err = cudaLaunchCooperativeKernel((const void*)pu_chain_kernel<W>, dim3(g.H / g.U),
@@ -359,19 +467,21 @@ cudaError_t launch(void** p, Geo g, int barrier_only, cudaStream_t stream) {
 }  // namespace
 
 // Pointers, in order: fh (B,J,H) f32, gates_pre (B,J,4H) f32 incl. the
-// layer-0 h2h bias, the packed weights (H/U, 13U, HP) in the weight dtype
-// (block p's rows: its gate columns of Wh2h (gate-major, 4U), Wx2f1 (U),
-// Wx2h1 (4U), Wh2h1 (4U), each the column's H weights, zero-padded to HP),
-// bx2f1 (H) f32, bx2h1 (4H) f32, bh2h1 (4H) f32, out (B,J,H) f32, the
-// published operands (3, 2, B, HP) in the weight dtype and a counter
-// (uint32), both zeroed by the caller. dtype 0 = float32, 1 = bfloat16.
-extern "C" int egotap_pu_chain(void* fh, void* gp, void* wpack, void* bx2f1,
+// layer-0 h2h bias, the weights Wh2h (4H rows), Wx2f1 (H), Wx2h1 (4H),
+// Wh2h1 (4H) in the weight dtype, each in the (out, in) layout (row n:
+// the H weights of output column n, at a pitch of `wld` = H or HP values,
+// 16-byte aligned, zero from H on), bx2f1 (H) f32, bx2h1 (4H) f32, bh2h1
+// (4H) f32, out (B,J,H) f32, the published operands (3, 2, B, HP) in the
+// weight dtype and a counter (uint32), both zeroed by the caller. dtype
+// 0 = float32, 1 = bfloat16.
+extern "C" int egotap_pu_chain(void* fh, void* gp, void* w0, void* wx2f1,
+                               void* wx2h1, void* wh2h1, void* bx2f1,
                                void* bx2h1, void* bh2h1, void* out, void* ops,
                                void* counter, int b, int j, int hidden, int hp,
-                               int units, int dtype, int barrier_only,
+                               int wld, int units, int dtype, int barrier_only,
                                void* stream) {
-  void* p[] = {fh, gp, wpack, bx2f1, bx2h1, bh2h1, out, ops, counter};
-  const Geo g{b, j, hidden, hp, units, 0, 0};
+  void* p[] = {fh, gp, w0, wx2f1, wx2h1, wh2h1, bx2f1, bx2h1, bh2h1, out, ops, counter};
+  const Geo g{b, j, hidden, hp, units, wld, 0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)launch<float>(p, g, barrier_only, s);
   if (dtype == 1) return (int)launch<__nv_bfloat16>(p, g, barrier_only, s);
@@ -386,7 +496,7 @@ extern "C" int egotap_pu_chain(void* fh, void* gp, void* wpack, void* bx2f1,
 // info[7] = the k-splits of a tile.
 extern "C" int egotap_pu_chain_occupancy(int dtype, int b, int hidden, int hp,
                                          int units, int* info) {
-  Geo g{b, 1, hidden, hp, units, 0, 0};
+  Geo g{b, 1, hidden, hp, units, hp, 0, 0};
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   const void* kernel = dtype == 0 ? (const void*)pu_chain_kernel<float>
                                   : (const void*)pu_chain_kernel<__nv_bfloat16>;

@@ -35,7 +35,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "attention": {"egotap_attention_packed":
                   [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
                   "egotap_attention_occupancy": [_I, _VP]},
-    "pu_chain": {"egotap_pu_chain": [_VP] * 9 + [_I] * 7 + [_VP],
+    "pu_chain": {"egotap_pu_chain": [_VP] * 12 + [_I] * 8 + [_VP],
                  "egotap_pu_chain_occupancy": [_I] * 5 + [_VP]},
     "fused_layer1": {"egotap_fused_layer1": [_VP] * 7 + [_I] * 5 + [_VP]},
 }

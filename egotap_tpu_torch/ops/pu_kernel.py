@@ -10,10 +10,10 @@ every product accumulates in f32; h/c state and the output are f32.
 
 `pu_chain_fused` runs kernel C (``csrc/pu_chain.cu``) for CUDA tensors
 and `pu_chain_plain` for CPU tensors. The kernel keeps each block's
-weights in shared memory for the whole walk (`pack_weights` lays them
-out) and meets the grid at one barrier per joint; `barrier_walk` runs
-those barriers alone (its latency floor), `kernel_resources` reports
-what a block takes of an SM.
+weights in shared memory for the whole walk, read once from their
+(out, in) rows (`weight_rows`), and meets the grid at one barrier per
+joint; `barrier_walk` runs those barriers alone (its latency floor),
+`kernel_resources` reports what a block takes of an SM.
 """
 
 from __future__ import annotations
@@ -88,18 +88,16 @@ def padded(hidden: int) -> int:
     return -(-hidden // 16) * 16
 
 
-def pack_weights(kernels, units: int) -> torch.Tensor:
-    """The four (in, out) kernels (Wh2h, Wx2f1, Wx2h1, Wh2h1) as kernel C
-    keeps them: (H/U, 13U, HP), block p's rows together, each the H
-    weights of one output column (gate-major within a matrix: column
-    g*H + p*U + i), zero-padded to HP."""
-    hidden = kernels[0].shape[0]
-    n = hidden // units
-    rows = [w.t().reshape(g, n, units, hidden).transpose(0, 1)
-            .reshape(n, g * units, hidden) for w, g in zip(kernels, _GATES)]
-    packed = torch.cat(rows, dim=1)
-    hp = padded(hidden)
-    return F.pad(packed, (0, hp - hidden)) if hp != hidden else packed
+def weight_rows(w: torch.Tensor) -> torch.Tensor:
+    """An (in, out) kernel as kernel C reads it: its (out, in) rows,
+    16-byte aligned, zero-padded to HP where H values are not a whole
+    number of 16 bytes. The transposed view of a PyTorch Linear weight,
+    as the lifter passes it, is that already: no copy."""
+    rows = w.t().contiguous()
+    hidden = rows.shape[1]
+    if hidden * rows.element_size() % 16:
+        return F.pad(rows, (0, padded(hidden) - hidden))
+    return rows if rows.data_ptr() % 16 == 0 else rows.clone()
 
 
 def _card(device):
@@ -122,17 +120,17 @@ def _check_fits(hidden: int, wdt: torch.dtype, device) -> int:
     return units
 
 
-def _launch(fh, gp, wpack, biases, b, J, hidden, units, wdt, barrier_only):
+def _launch(fh, gp, rows, biases, b, J, hidden, units, wdt, barrier_only):
     dev = fh.device
     out = torch.empty(b, J, hidden, dtype=torch.float32, device=dev)
     ops = torch.zeros(3, 2, b, padded(hidden), dtype=wdt, device=dev)
     counter = torch.zeros(1, dtype=torch.int32, device=dev)
     lib = _build.library("pu_chain")
     _build.check(lib.egotap_pu_chain(
-        fh.data_ptr(), gp.data_ptr(), wpack.data_ptr(),
+        fh.data_ptr(), gp.data_ptr(), *(w.data_ptr() for w in rows),
         *(x.data_ptr() for x in biases), out.data_ptr(), ops.data_ptr(),
-        counter.data_ptr(), b, J, hidden, padded(hidden), units,
-        _DTYPE_CODE[wdt], int(barrier_only), _build.stream_ptr(fh)),
+        counter.data_ptr(), b, J, hidden, padded(hidden), rows[0].shape[-1],
+        units, _DTYPE_CODE[wdt], int(barrier_only), _build.stream_ptr(fh)),
         "pu_chain")
     return out
 
@@ -171,7 +169,7 @@ def pu_chain_fused(fh: torch.Tensor, gates_pre: torch.Tensor,
     def f32(x):
         return x.float().contiguous()
     biases = [f32(cell1[n]["bias"]) for n in ("x2f", "x2h", "h2h")]
-    out = _launch(f32(fh), f32(gates_pre), pack_weights(kernels, units),
+    out = _launch(f32(fh), f32(gates_pre), [weight_rows(w) for w in kernels],
                   biases, b, J, H, units, wdt, barrier_only=False)
     pu_chain_fused.launches += 1
     return out
@@ -187,8 +185,8 @@ def barrier_walk(b: int, J: int, hidden: int, dtype: torch.dtype,
     floor (needs the card; not counted as a launch of the chain)."""
     units = _check_fits(hidden, dtype, device)
     dummy = torch.zeros(1, device=device)
-    wpack = torch.zeros(1, dtype=dtype, device=device)
-    _launch(dummy.expand(b, J, hidden), dummy, wpack, [dummy] * 3, b, J,
+    rows = torch.zeros(1, dtype=dtype, device=device).expand(1, padded(hidden))
+    _launch(dummy.expand(b, J, hidden), dummy, [rows] * 4, [dummy] * 3, b, J,
             hidden, units, dtype, barrier_only=True)
 
 

@@ -114,12 +114,13 @@ def test_launches_under_no_grad(fake, which):
 @pytest.mark.parametrize("h,units,hp", [(512, 4, 512), (128, 1, 128),
                                         (264, 2, 272)])
 def test_pu_chain_launch_arguments(fake, dtype, code, h, units, hp):
-    """B, J, H, H padded to 16, the units a block (the smallest slice
-    with at most one block an SM), the dtype code, and no barrier-only
-    walk."""
+    """B, J, H, H padded to 16, the weights' row pitch (H: a row of 264
+    values is a whole number of 16 bytes in both dtypes), the units a
+    block (the smallest slice with at most one block an SM), the dtype
+    code, and no barrier-only walk."""
     pu_kernel.pu_chain_fused(*_pu_args(b=5, j=7, h=h, dtype=dtype))
     ((name, args),) = fake.calls
-    assert args[9:] == (5, 7, h, hp, units, code, 0, 0)
+    assert args[12:] == (5, 7, h, hp, h, units, code, 0, 0)
 
 
 def test_pu_chain_refusals_launch_nothing(fake):
@@ -140,25 +141,20 @@ def test_barrier_walk_is_not_counted(fake):
     before = pu_kernel.pu_chain_fused.launches
     pu_kernel.barrier_walk(32, 15, 512, torch.bfloat16, "meta")
     ((name, args),) = fake.calls
-    assert args[9:16] == (32, 15, 512, 512, 4, 1, 1)
+    assert args[12:20] == (32, 15, 512, 512, 512, 4, 1, 1)
     assert pu_kernel.pu_chain_fused.launches == before
 
 
-@pytest.mark.parametrize("h,units", [(8, 2), (24, 3)])
-def test_pack_weights_lays_out_each_blocks_rows(h, units):
-    """Block p's rows are its units' columns of Wh2h (gate-major), Wx2f1,
-    Wx2h1 and Wh2h1, each the column's H weights, zero-padded to 16."""
+@pytest.mark.parametrize("dtype,pitch", [(torch.float32, 36),
+                                         (torch.bfloat16, 48)])
+def test_weight_rows(dtype, pitch):
+    """An (in, out) kernel reaches kernel C as its (out, in) rows: the
+    transposed view of a Linear weight as it is, with no copy; rows of
+    H = 36 bf16 values (72 bytes) zero-padded to 48 for 16-byte copies."""
     g = torch.Generator().manual_seed(0)
-    kernels = [torch.randn(h, n * h, generator=g) for n in (4, 1, 4, 4)]
-    packed = pu_kernel.pack_weights(kernels, units)
-    hp = pu_kernel.padded(h)
-    assert packed.shape == (h // units, 13 * units, hp)
-    assert not packed[..., h:].any()
-    for p in range(h // units):
-        row = 0
-        for w, gates in zip(kernels, (4, 1, 4, 4)):
-            for gate in range(gates):
-                for i in range(units):
-                    col = gate * h + p * units + i
-                    assert torch.equal(packed[p, row, :h], w[:, col])
-                    row += 1
+    weight = torch.randn(4 * 36, 36, generator=g).to(dtype)   # (out, in)
+    rows = pu_kernel.weight_rows(weight.t())
+    assert rows.shape == (4 * 36, pitch)
+    assert torch.equal(rows[:, :36], weight) and not rows[:, 36:].any()
+    if pitch == 36:
+        assert rows.data_ptr() == weight.data_ptr()

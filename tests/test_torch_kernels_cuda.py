@@ -159,12 +159,14 @@ def _pu_inputs(gen, b, j, h, dt):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,j,h", [(1, 1, 128), (5, 2, 128), (8, 5, 128),
-                                   (32, 15, 512), (33, 17, 512)])
+                                   (32, 15, 512), (33, 17, 512), (3, 4, 36)])
 def test_pu_chain_matches_plain_small(gen, b, j, h, dtype):
-    """H=128: one hidden unit per block; 512: the lifter's four. B=1, 5
+    """H=128: one hidden unit per block; 512: the lifter's four. B=1, 3, 5
     and 33 leave ragged row tiles; J=1 is fill and drain alone; J=15 and
     17 walk long enough for a stale operand (an L1 hit on another block's
-    slot, a wrong buffer) to show."""
+    slot, a wrong buffer) to show. H=36 is padded to 48: bf16 weight rows
+    (72 bytes) reach the kernel padded, f32 ones are padded in shared
+    memory."""
     dt = getattr(torch, dtype)
     args = _pu_inputs(gen, b, j, h, dt)
     before = pu_kernel.pu_chain_fused.launches
