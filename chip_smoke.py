@@ -116,7 +116,9 @@ def device_ms(torch, fn, kernel, iters=ITERS):
     times = [evt.device_time_total / 1e3 for evt in prof.events()
              if evt.device_type == torch.autograd.DeviceType.CUDA
              and kernel in evt.name]
-    if len(times) != iters:
+    # the trace may drop a few events (an H100 once showed 18 of 20
+    # launches); more than asked for means another kernel matched
+    if not iters // 2 <= len(times) <= iters:
         raise AssertionError(f"the profiler saw {len(times)} launches of "
                              f"{kernel}, not {iters}")
     return statistics.median(times)
@@ -246,12 +248,28 @@ def phase_kernels(torch, F, card):
     shapes = [(32, 8, 8, 1024), (32, 16, 16, 1024), (32, 32, 32, 512)]
     for dt in (torch.float32, torch.bfloat16):
         tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-               "bound_ms": 0.0, "max_abs_err": 0.0}
+               "bound_ms": 0.0, "device_ms": 0.0, "max_abs_err": 0.0}
         for shp in shapes:
+            geo = upsample.launch_geometry(*shp, dt)
+            res = upsample.kernel_resources(dt, geo["smem"])
+            print(f"  upsample {dt} kernel at {shp}: grid {geo['grid']}, "
+                  f"{geo['band']} output rows x {geo['cv']} vectors a block, "
+                  f"{geo['staged']} input rows staged; ptxas "
+                  f"{res['registers']} registers, {res['spill_store_bytes']} "
+                  f"+ {res['spill_load_bytes']} bytes spill stores + loads; "
+                  f"{res['smem_bytes']} bytes of shared memory a block of "
+                  f"{res['threads']} threads, {res['blocks_per_sm']} blocks "
+                  f"fit one SM")
+            if (res["blocks_per_sm"] < 1
+                    or res["registers"] != res["runtime_registers"]):
+                raise AssertionError(f"{dt} upsample kernel resources: {res}")
             x = torch.randn(shp, generator=g, device=dev).to(dt)
             ref = upsample2x_plain(x)
             err = check(f"upsample {dt} {shp}", upsample2x_align_corners(x),
                         ref, upsample.TOL[dt], failures)
+            check(f"upsample {dt} {shp}, streaming stores",
+                  upsample2x_align_corners(x, stream_stores=True), ref,
+                  upsample.TOL[dt], failures)
             if dt == torch.bfloat16:
                 d = x.dim()
                 rows_bf16 = upsample._lerp(x.float(), d - 3, shp[1]).to(dt)
@@ -261,16 +279,22 @@ def phase_kernels(torch, F, card):
                         failures)
             nchw = x.permute(0, 3, 1, 2)
             ms = time_ms(torch, lambda: upsample2x_align_corners(x))
+            dms = device_ms(torch, lambda: upsample2x_align_corners(x),
+                            "upsample2x_kernel")
+            sms = device_ms(torch, lambda: upsample2x_align_corners(
+                x, stream_stores=True), "upsample2x_kernel")
             pms = time_ms(torch, lambda: upsample2x_plain(x))
             lms = time_ms(torch, lambda: F.interpolate(
                 nchw, scale_factor=2, mode="bilinear", align_corners=True))
             nbytes = x.numel() * x.element_size() * 5     # read 1, write 4
             flops = 6 * 4 * x.numel()                     # 3 lerps / output
             bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS)
-            print(f"    {shp}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-                  f"F.interpolate {lms:.4f} ms, bound {bound:.4f} ms [{card}]")
+            print(f"    {shp}: kernel {ms:.4f} ms (its launch alone on the "
+                  f"device {dms:.4f} ms, with streaming stores {sms:.4f} ms), "
+                  f"plain {pms:.4f} ms, F.interpolate {lms:.4f} ms, bound "
+                  f"{bound:.4f} ms [{card}]")
             for k, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms),
-                         ("bound_ms", bound)):
+                         ("bound_ms", bound), ("device_ms", dms)):
                 tot[k] += v
             tot["max_abs_err"] = max(tot["max_abs_err"], err)
         rows[("upsample", dt)] = dict(tot, bound_by="bytes")

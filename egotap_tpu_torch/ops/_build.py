@@ -31,7 +31,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # argtypes of each library's C entry points
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES: Dict[str, Dict[str, list]] = {
-    "upsample": {"egotap_upsample2x": [_VP, _VP, _I, _I, _I, _I, _I, _VP]},
+    "upsample": {"egotap_upsample2x": [_VP] * 4 + [_I] * 9 + [_VP],
+                 "egotap_upsample2x_occupancy": [_I, _I, _VP]},
     "attention": {"egotap_attention_packed":
                   [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
                   "egotap_attention_occupancy": [_I, _VP]},

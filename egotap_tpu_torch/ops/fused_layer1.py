@@ -24,7 +24,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from egotap_tpu_torch.ops import _build
+from egotap_tpu_torch.ops import _build, refuse_grad
 from egotap_tpu_torch.ops.quant import (conv_weight_rows, f32_scalar, im2col,
                                         int8_matmul, quantize_weights)
 
@@ -125,6 +125,8 @@ def fused_layer1_int8(x: torch.Tensor, w_q: torch.Tensor,
         raise ValueError("x, w_q, w_scale and bias must share a device")
     if n > 65535:
         raise NotImplementedError("fused layer1 kernel: N <= 65535")
+    refuse_grad("fused layer1", x, w_scale, bias)
+    refuse_grad("fused layer1", x, w_scale, bias)
     w_q, w_scale, bias = (t.contiguous() for t in (w_q, w_scale.float(),
                                                    bias.float()))
     out = torch.empty_like(x)

@@ -12,7 +12,9 @@ output pixel as the 2-tap lerp of input rows, then of input columns,
 
 from __future__ import annotations
 
+import ctypes
 import functools
+import re
 from typing import Tuple
 
 import numpy as np
@@ -63,30 +65,121 @@ TOL = {torch.float32: (2e-5, 2e-6), torch.bfloat16: (8e-3, 5e-4)}
 
 _VEC = {torch.float32: (4, 0), torch.bfloat16: (8, 1)}
 
+THREADS = 256                 # a block of kernel A
+BAND_ROWS = 16                # output rows a block, at most
+SMEM_BUDGET = 48 * 1024       # staged input bytes a block, at most
+STREAM_STORES = False         # `st.global.cs` for the output (see PERF.md)
 
-def upsample2x_align_corners(x: torch.Tensor) -> torch.Tensor:
+
+def tap_table(in_size: int) -> np.ndarray:
+    """`lerp_taps(in_size)` as kernel A reads them: int32 lo, hi, then the
+    f32 fractions' bits, 2 * in_size of each."""
+    lo, hi, fr = lerp_taps(in_size)
+    return np.concatenate([lo.astype(np.int32), hi.astype(np.int32),
+                           fr.view(np.int32)])
+
+
+@functools.lru_cache(maxsize=None)
+def _device_taps(in_size: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(tap_table(in_size)).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def launch_geometry(n: int, h: int, w: int, c: int, dtype: torch.dtype
+                    ) -> dict:
+    """Kernel A's blocks for (n, h, w, c) in ``dtype``: ``cv`` 16-byte
+    channel vectors a block (the most of 8, 4, 2, 1 dividing c's), ``band``
+    output rows a block, ``staged`` input rows the widest band reads,
+    ``smem`` bytes a block, ``grid`` (channel slices, bands, images; a
+    block walks images ``z, z + 65535, ...``). Bands halve down to 4 rows,
+    then channel slices narrow, then bands halve again, until the staged
+    rows fit ``SMEM_BUDGET``. Cached: the caller must not change it."""
+    vec = _VEC[dtype][0]
+    if c % vec:
+        raise NotImplementedError(
+            f"upsample kernel: channels {c} not a multiple of {vec}")
+    if 4 * h * w * c >= 2 ** 31:
+        raise NotImplementedError("upsample kernel: 2H x 2W x C of one "
+                                  "image must stay below 2^31")
+    lo, hi, _ = lerp_taps(h)
+    cvec = c // vec
+    cv = next(k for k in (8, 4, 2, 1) if cvec % k == 0)
+    band = min(BAND_ROWS, 2 * h)
+    while True:
+        staged = max(int(hi[min(o + band, 2 * h) - 1] - lo[o]) + 1
+                     for o in range(0, 2 * h, band))
+        smem = staged * w * cv * 16
+        if smem <= SMEM_BUDGET:
+            break
+        if band > 4:
+            band //= 2
+        elif cv > 1:
+            cv //= 2
+        elif band > 1:
+            band //= 2
+        else:
+            raise NotImplementedError(
+                f"upsample kernel: two input rows of width {w} exceed "
+                f"{SMEM_BUDGET} bytes of shared memory a block")
+    return {"cv": cv, "band": band, "staged": staged, "smem": smem,
+            "grid": (cvec // cv, -(-2 * h // band), min(n, 65535))}
+
+
+def kernel_resources(dtype: torch.dtype, smem: int) -> dict:
+    """What kernel A in ``dtype`` takes of an SM with ``smem`` bytes of
+    staged input a block (needs the card): ``registers``, spill bytes and
+    static shared memory from ``ptxas -v``; ``blocks_per_sm``,
+    ``runtime_registers``, ``local_bytes``, ``smem_bytes`` and
+    ``threads`` from the runtime."""
+    tag = {torch.float32: "upsample2x_kernelIfLb0",
+           torch.bfloat16: "upsample2x_kernelI13__nv_bfloat16Lb0"}[dtype]
+    log = _build.build_log("upsample")
+    entry = [part for part in log.split("Compiling entry function")
+             if tag in part.split("\n", 1)[0]]
+    if len(entry) != 1:
+        raise RuntimeError(f"the build log holds no single {tag}:\n{log}")
+
+    def read(pattern):
+        found = re.search(pattern, entry[0])
+        return int(found.group(1)) if found else 0
+    info = (ctypes.c_int * 5)()
+    _build.check(_build.library("upsample").egotap_upsample2x_occupancy(
+        _VEC[dtype][1], smem, ctypes.addressof(info)), "upsample occupancy")
+    return {"registers": read(r"Used (\d+) registers"),
+            "spill_store_bytes": read(r"(\d+) bytes spill stores"),
+            "spill_load_bytes": read(r"(\d+) bytes spill loads"),
+            "static_smem_bytes": read(r"(\d+) bytes smem"),
+            "blocks_per_sm": info[0], "runtime_registers": info[1],
+            "local_bytes": info[2], "smem_bytes": info[3],
+            "threads": info[4]}
+
+
+def upsample2x_align_corners(x: torch.Tensor,
+                             stream_stores: bool = None) -> torch.Tensor:
     """Exact ``Upsample(scale_factor=2, bilinear, align_corners=True)``.
 
-    x: (..., H, W, C) NHWC. Returns (..., 2H, 2W, C) in x's dtype."""
+    x: (..., H, W, C) NHWC. Returns (..., 2H, 2W, C) in x's dtype.
+    ``stream_stores`` overrides `STREAM_STORES` (the card's store hint)."""
     if x.device.type == "cpu":
         return upsample2x_plain(x)
     if x.dtype not in _VEC:
         raise NotImplementedError(f"upsample kernel: dtype {x.dtype}")
     refuse_grad("upsample", x)
-    vec, code = _VEC[x.dtype]
     h, w, c = x.shape[-3:]
-    if c % vec:
-        raise NotImplementedError(
-            f"upsample kernel: channels {c} not a multiple of {vec}")
+    n = x.numel() // (h * w * c)
+    geo = launch_geometry(n, h, w, c, x.dtype)
     x = x.contiguous()
     if x.data_ptr() % 16:            # the kernel moves 16-byte vectors
         x = x.clone()
-    n = x.numel() // (h * w * c)
     out = torch.empty(x.shape[:-3] + (2 * h, 2 * w, c), dtype=x.dtype,
                       device=x.device)
+    if stream_stores is None:
+        stream_stores = STREAM_STORES
     lib = _build.library("upsample")
     _build.check(lib.egotap_upsample2x(
-        x.data_ptr(), out.data_ptr(), n, h, w, c, code,
+        x.data_ptr(), out.data_ptr(), _device_taps(h, x.device).data_ptr(),
+        _device_taps(w, x.device).data_ptr(), n, h, w, c, _VEC[x.dtype][1],
+        geo["band"], geo["cv"], geo["staged"], int(stream_stores),
         _build.stream_ptr(x)), "upsample2x")
     upsample2x_align_corners.launches += 1
     return out

@@ -1,4 +1,4 @@
-"""What the kernel wrappers of kernels A, B and C check and pass on
+"""What the kernel wrappers of kernels A, B, C and D check and pass on
 before they launch, on the CPU: the libraries are replaced by a recorder
 and the tensors live on the ``meta`` device (no data, but not the CPU, so
 the wrappers take their kernel path), so no kernel runs. The kernels
@@ -10,6 +10,7 @@ import torch
 
 from egotap_tpu_torch.ops import _build
 from egotap_tpu_torch.ops import attention as att
+from egotap_tpu_torch.ops import fused_layer1 as fl
 from egotap_tpu_torch.ops import pu_kernel
 from egotap_tpu_torch.ops import upsample as up
 from tests.test_torch_attention_launch import FakeLibrary
@@ -30,6 +31,10 @@ class Recorder(FakeLibrary):
 
     def egotap_pu_chain(self, *args):
         self.calls.append(("pu_chain", args))
+        return 0
+
+    def egotap_fused_layer1(self, *args):
+        self.calls.append(("fused_layer1", args))
         return 0
 
 
@@ -53,6 +58,13 @@ def _pu_args(b=2, j=3, h=32, dtype=torch.bfloat16):
             cell1]
 
 
+def _layer1_args(n_convs=4):
+    """w_q, w_scale, bias as `pack_blocks` gives them (w_q is int8 and
+    cannot require grad)."""
+    return [_meta(n_convs, 9 * 64, 64, dtype=torch.int8),
+            _meta(n_convs, 64), _meta(n_convs, 64)]
+
+
 def _call(which):
     """(wrapper, its inputs that may require grad, a call of it)."""
     if which in ("attention", "attention_unpacked"):
@@ -67,13 +79,19 @@ def _call(which):
         x = _meta(1, 4, 4, 8, dtype=torch.bfloat16)
         return (up.upsample2x_align_corners, [x],
                 lambda: up.upsample2x_align_corners(x))
+    if which == "fused_layer1":
+        x = _meta(2, 8, 8, 64, dtype=torch.bfloat16)
+        packed = _layer1_args()
+        return (fl.fused_layer1_int8, [x, *packed[1:]],
+                lambda: fl.fused_layer1_int8(x, *packed))
     args = _pu_args()
     leaves = args[:3] + [t for c in args[3].values() for t in c.values()]
     return (pu_kernel.pu_chain_fused, leaves,
             lambda: pu_kernel.pu_chain_fused(*args))
 
 
-WRAPPERS = ["attention", "attention_unpacked", "upsample", "pu_chain"]
+WRAPPERS = ["attention", "attention_unpacked", "upsample", "pu_chain",
+            "fused_layer1"]
 
 
 @pytest.mark.parametrize("which", WRAPPERS)
@@ -158,3 +176,34 @@ def test_weight_rows(dtype, pitch):
     assert torch.equal(rows[:, :36], weight) and not rows[:, 36:].any()
     if pitch == 36:
         assert rows.data_ptr() == weight.data_ptr()
+
+
+@pytest.mark.parametrize("dtype,code", [(torch.float32, 0),
+                                        (torch.bfloat16, 1)])
+@pytest.mark.parametrize("shape", [(32, 8, 8, 1024), (32, 32, 32, 512),
+                                   (2, 3, 1, 5, 64)])
+def test_upsample_launch_arguments(fake, dtype, code, shape):
+    """Leading dims folded into N, then H, W, C, the dtype code and
+    `launch_geometry`'s band, channel vectors and staged rows, the store
+    hint; the tap tables of H and W are passed as device pointers."""
+    x = _meta(*shape, dtype=dtype)
+    out = up.upsample2x_align_corners(x)
+    assert out.shape == shape[:-3] + (2 * shape[-3], 2 * shape[-2],
+                                      shape[-1])
+    ((name, args),) = fake.calls
+    h, w, c = shape[-3:]
+    n = x.numel() // (h * w * c)
+    geo = up.launch_geometry(n, h, w, c, dtype)
+    assert args[4:13] == (n, h, w, c, code, geo["band"], geo["cv"],
+                          geo["staged"], int(up.STREAM_STORES))
+
+
+def test_upsample_refusals_launch_nothing(fake):
+    with pytest.raises(NotImplementedError, match="multiple of 8"):
+        up.upsample2x_align_corners(_meta(1, 4, 4, 12, dtype=torch.bfloat16))
+    with pytest.raises(NotImplementedError, match="2\\^31"):
+        up.upsample2x_align_corners(_meta(1, 1024, 1024, 512))
+    with pytest.raises(NotImplementedError):                 # float16
+        up.upsample2x_align_corners(_meta(1, 4, 4, 8, dtype=torch.float16))
+    assert not fake.calls
+

@@ -146,6 +146,33 @@ def test_upsample_matches_plain_5d(gen, dtype):
     _close(got, up.upsample2x_plain(x), up.TOL[dt])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [
+    (3, 1, 4, 8), (2, 5, 1, 16), (2, 7, 9, 8), (1, 1, 1, 8),   # h, w = 1, odd
+    (2, 33, 17, 24), (1, 160, 96, 64),      # ragged band, narrowed slices
+    (70000, 2, 2, 8)])                      # images past the grid's 65535
+def test_upsample_edge_shapes(gen, shape, dtype):
+    dt = getattr(torch, dtype)
+    x = torch.randn(shape, generator=gen, device="cuda").to(dt)
+    before = up.upsample2x_align_corners.launches
+    got = up.upsample2x_align_corners(x)
+    assert up.upsample2x_align_corners.launches == before + 1
+    _close(got, up.upsample2x_plain(x), up.TOL[dt])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_upsample_kernel_resources(gen, dtype):
+    """At the decoder's largest staging (32 x 32 x 512): the build log and
+    the runtime agree on the registers, nothing spills, and at least four
+    blocks fit one SM."""
+    dt = getattr(torch, dtype)
+    geo = up.launch_geometry(32, 32, 32, 512, dt)
+    res = up.kernel_resources(dt, geo["smem"])
+    assert res["registers"] == res["runtime_registers"] > 0
+    assert res["spill_store_bytes"] == res["local_bytes"] == 0, res
+    assert res["blocks_per_sm"] >= 4, res
+
+
 def _pu_inputs(gen, b, j, h, dt):
     def u(*shape):
         return (torch.rand(shape, generator=gen, device="cuda") * 2 - 1
@@ -318,3 +345,4 @@ def test_fused_layer1_refusals(gen):
     x = torch.randn(1, 8, 16, 64, device="cuda")[:, :, ::2]
     with pytest.raises(ValueError):                       # not contiguous
         fl.fused_layer1_int8(x, *packed)
+
