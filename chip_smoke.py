@@ -14,14 +14,16 @@ Exits non-zero, printing no result, when there is no card. Phases:
    each within the kernel module's ``TOL``; faulty variants of the plain
    version (a bf16 rounding skipped or added, f32 operands rounded to
    TF32, the last key chunk or a term dropped, one int8 scale for the
-   whole batch) must fall outside those limits; median CUDA-event times
-   of the kernel, its plain version and a one-call PyTorch yardstick
-   where one exists (never used by the port); before B's and C's
-   timings, each of their kernels' registers, spill bytes and shared
-   memory (``ptxas -v``) and the blocks of it one SM holds (for C also
-   its blocks and units a block); for C also the device time of its
-   launch alone and of its walk with its grid barriers alone, its
-   latency floor (torch.profiler). Kernels:
+   whole batch or for each block's run of pixels instead of the image)
+   must fall outside those limits; median CUDA-event times of the
+   kernel, its plain version and a one-call PyTorch yardstick where one
+   exists (never used by the port); before each kernel's timings, its
+   registers, spill bytes and shared memory (``ptxas -v``) and the
+   blocks of it one SM holds (for A its grid at each shape, for C its
+   blocks and units a block, for D its cluster size and
+   ``cudaOccupancyMaxActiveClusters``); for A, C and D the device time of
+   a launch alone (torch.profiler), for C also of its walk with its grid
+   barriers alone, its latency floor. Kernels:
    A upsample, B packed attention and B on the unpacked layout, C PU
    chain, D fused int8 layer1 (also timed against the unfused int8
    layer1 it replaces).
@@ -233,7 +235,8 @@ def phase_kernels(torch, F, card):
     from egotap_tpu_torch.ops.fused_layer1 import (fused_layer1_int8,
                                                    fused_layer1_plain,
                                                    pack_blocks)
-    from egotap_tpu_torch.ops.quant import (Calibrated, install_scales,
+    from egotap_tpu_torch.ops.quant import (Calibrated, f32_scalar, im2col,
+                                            install_scales, int8_matmul,
                                             prequantize, quantized_conv,
                                             set_calibrating)
     from egotap_tpu_torch.serving import init_weights
@@ -267,9 +270,6 @@ def phase_kernels(torch, F, card):
             ref = upsample2x_plain(x)
             err = check(f"upsample {dt} {shp}", upsample2x_align_corners(x),
                         ref, upsample.TOL[dt], failures)
-            check(f"upsample {dt} {shp}, streaming stores",
-                  upsample2x_align_corners(x, stream_stores=True), ref,
-                  upsample.TOL[dt], failures)
             if dt == torch.bfloat16:
                 d = x.dim()
                 rows_bf16 = upsample._lerp(x.float(), d - 3, shp[1]).to(dt)
@@ -281,8 +281,6 @@ def phase_kernels(torch, F, card):
             ms = time_ms(torch, lambda: upsample2x_align_corners(x))
             dms = device_ms(torch, lambda: upsample2x_align_corners(x),
                             "upsample2x_kernel")
-            sms = device_ms(torch, lambda: upsample2x_align_corners(
-                x, stream_stores=True), "upsample2x_kernel")
             pms = time_ms(torch, lambda: upsample2x_plain(x))
             lms = time_ms(torch, lambda: F.interpolate(
                 nchw, scale_factor=2, mode="bilinear", align_corners=True))
@@ -290,9 +288,8 @@ def phase_kernels(torch, F, card):
             flops = 6 * 4 * x.numel()                     # 3 lerps / output
             bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS)
             print(f"    {shp}: kernel {ms:.4f} ms (its launch alone on the "
-                  f"device {dms:.4f} ms, with streaming stores {sms:.4f} ms), "
-                  f"plain {pms:.4f} ms, F.interpolate {lms:.4f} ms, bound "
-                  f"{bound:.4f} ms [{card}]")
+                  f"device {dms:.4f} ms), plain {pms:.4f} ms, F.interpolate "
+                  f"{lms:.4f} ms, bound {bound:.4f} ms [{card}]")
             for k, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms),
                          ("bound_ms", bound), ("device_ms", dms)):
                 tot[k] += v
@@ -457,7 +454,39 @@ def phase_kernels(torch, F, card):
             res = act if i % 2 else res
         return act.to(x.dtype)
 
+    geo = fused_layer1.cluster_geometry(hw, hw)
+    pb = geo["pixels"]
+
+    def one_scale_per_band(x):
+        """The stage with one scale per block's run of pixels (its rows)
+        instead of one per image: the fault a cluster design can make."""
+        act = res = x.float()
+        for i in range(wq.shape[0]):
+            band = act.reshape(n, -1, pb * c).abs().amax(dim=2)  # (n, cl)
+            a_scale = (torch.clamp_min(band, 1e-12) / f32_scalar(act, 127.0)
+                       ).repeat_interleave(pb, dim=1).reshape(n, hw, hw, 1)
+            codes = torch.round(act / a_scale).clamp_(-127, 127).to(
+                torch.int8)
+            cols, _ = im2col(codes, 3, 1, 1)
+            acc = int8_matmul(cols, wq[i].t()).reshape(n, hw, hw, c)
+            out = acc.float() * (a_scale * ws[i]) + bias[i]
+            act = torch.relu(out if i % 2 == 0 else out + res)
+            res = act if i % 2 else res
+        return act.to(x.dtype)
+
     for dt in (torch.float32, torch.bfloat16):
+        res = fused_layer1.kernel_resources(dt, hw, hw)
+        print(f"  fused_layer1 {dt} kernel: ptxas {res['registers']} "
+              f"registers, {res['spill_store_bytes']} + "
+              f"{res['spill_load_bytes']} bytes spill stores + loads; "
+              f"clusters of {res['cluster']} blocks of {res['pixels']} "
+              f"pixels and {res['threads']} threads, {res['smem_bytes']} "
+              f"bytes of shared memory a block, {res['blocks_per_sm']} "
+              f"blocks fit one SM of {res['sms']}; "
+              f"cudaOccupancyMaxActiveClusters {res['max_active_clusters']}")
+        if (res["max_active_clusters"] < 1
+                or res["registers"] != res["runtime_registers"]):
+            raise AssertionError(f"{dt} fused layer1 kernel resources: {res}")
         x = (torch.randn(n, hw, hw, c, generator=g, device=dev) * ramp).to(dt)
         ref = fused_layer1_plain(x, wq, ws, bias)
         err = check(f"fused_layer1 {dt} {tuple(x.shape)}",
@@ -465,6 +494,9 @@ def phase_kernels(torch, F, card):
                     fused_layer1.TOL[dt], failures)
         control("one activation scale for the whole batch",
                 one_scale_per_batch(x), ref, fused_layer1.TOL[dt], failures)
+        control(f"one activation scale per block ({pb} pixels) instead of "
+                f"per image", one_scale_per_band(x), ref,
+                fused_layer1.TOL[dt], failures)
         xf = x.float()
         block1 = fused_layer1_plain(xf, wq[:2], ws[:2], bias[:2])
         conv3 = fused_layer1_plain(block1, wq[2:3], ws[2:3], bias[2:3])
@@ -479,6 +511,8 @@ def phase_kernels(torch, F, card):
         install_scales([blocks])
         prequantize([blocks])
         ms = time_ms(torch, lambda: fused_layer1_int8(x, wq, ws, bias))
+        dms = device_ms(torch, lambda: fused_layer1_int8(x, wq, ws, bias),
+                        "layer1_kernel")
         pms = time_ms(torch, lambda: fused_layer1_plain(x, wq, ws, bias))
         ums = time_ms(torch, lambda: blocks(x))
         for m in blocks.modules():               # fresh scales per dtype
@@ -489,10 +523,12 @@ def phase_kernels(torch, F, card):
             + 4 * (ws.numel() + bias.numel())
         t_ops, t_bytes = ops / INT8_TENSOR_OPS, nbytes / HBM_BYTES_PER_S
         bound = 1e3 * max(t_ops, t_bytes)
-        print(f"    kernel {ms:.4f} ms, plain {pms:.4f} ms, unfused int8 "
-              f"layer1 {ums:.4f} ms, bound {bound:.4f} ms [{card}]")
+        print(f"    kernel {ms:.4f} ms (its launch alone on the device "
+              f"{dms:.4f} ms), plain {pms:.4f} ms, unfused int8 layer1 "
+              f"{ums:.4f} ms, bound {bound:.4f} ms [{card}]")
         rows[("fused_layer1", dt)] = dict(
             ms=ms, plain_ms=pms, library_ms=None, unfused_ms=ums,
+            device_ms=dms,
             bound_ms=bound, max_abs_err=err,
             bound_by="operations" if t_ops >= t_bytes else "bytes")
     if failures:

@@ -184,7 +184,9 @@ class ResNetEncoder(WeightCache, nn.Module):
 
     def _fused_layer1(self, x: torch.Tensor) -> torch.Tensor:
         """Kernel D on layer1's folded, per-image-quantized blocks (JAX
-        `ResNetEncoder`, resnet.py:318-337)."""
+        `ResNetEncoder`, resnet.py:318-337). On the card it raises when
+        grad mode is on and x requires grad (the kernel has no
+        backward): run the encoder under ``torch.no_grad()``."""
         if self.layer1_wq is None:
             self.prequantize()
         return fused_layer1_int8(x.contiguous(), self.layer1_wq,

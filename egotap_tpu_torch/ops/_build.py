@@ -31,14 +31,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # argtypes of each library's C entry points
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES: Dict[str, Dict[str, list]] = {
-    "upsample": {"egotap_upsample2x": [_VP] * 4 + [_I] * 9 + [_VP],
+    "upsample": {"egotap_upsample2x": [_VP] * 4 + [_I] * 8 + [_VP],
                  "egotap_upsample2x_occupancy": [_I, _I, _VP]},
     "attention": {"egotap_attention_packed":
                   [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
                   "egotap_attention_occupancy": [_I, _VP]},
     "pu_chain": {"egotap_pu_chain": [_VP] * 12 + [_I] * 8 + [_VP],
                  "egotap_pu_chain_occupancy": [_I] * 5 + [_VP]},
-    "fused_layer1": {"egotap_fused_layer1": [_VP] * 7 + [_I] * 5 + [_VP]},
+    "fused_layer1": {"egotap_fused_layer1": [_VP] * 5 + [_I] * 8 + [_VP],
+                     "egotap_fused_layer1_occupancy": [_I] * 5 + [_VP]},
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

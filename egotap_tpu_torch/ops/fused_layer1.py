@@ -14,12 +14,15 @@ The activation stays f32 from ``x.float()`` on and is rounded once, to
 x's dtype, at the end. BatchNorm is folded into the weights first
 (`fold_bn`, `pack_blocks`).
 
-`fused_layer1_int8` runs kernel D (``csrc/fused_layer1.cu``) for a CUDA
-tensor and `fused_layer1_plain` for a CPU tensor.
+`fused_layer1_int8` runs kernel D (``csrc/fused_layer1.cu``: one
+thread-block cluster holds each image on chip for the whole stage) for a
+CUDA tensor and `fused_layer1_plain` for a CPU tensor.
 """
 
 from __future__ import annotations
 
+import ctypes
+import re
 from typing import Sequence, Tuple
 
 import torch
@@ -94,18 +97,106 @@ def fused_layer1_plain(x: torch.Tensor, w_q: torch.Tensor,
 # H100 the kernel equals the plain version bit for bit at every shape
 # tried, in f32 and bf16 (reading 0); the limits only leave room for
 # rounding noise. The faulty controls of `chip_smoke.py` read far above
-# them: one scale for the whole batch (6.4e-3, 8.8e-3), the residual
+# them: one scale for the whole batch (6.4e-3, 8.8e-3), one scale per
+# block's 256 pixels instead of per image (4.4e-2, 1.7e-2), the residual
 # dropped from the second block (1.0, 0.94).
 TOL = {torch.float32: (1e-6, 1e-7), torch.bfloat16: (1e-6, 1e-7)}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+THREADS = 256                 # a block: 8 warps of 32 pixels
+PIXELS_MAX = 256              # pixels a block, at most
+MAX_CLUSTER = 16              # blocks a cluster (one cluster an image)
+MAX_PIXELS = PIXELS_MAX * MAX_CLUSTER    # pixels of an image, at most
+PIX = 80                      # bytes per pixel of a code run and tile
+WPITCH = 9 * CHANNELS + 16    # bytes per output channel of the weights
+SMEM_LIMIT = 232448           # shared memory a block may opt in to
+
+
+def cluster_geometry(h: int, w: int) -> dict:
+    """How kernel D cuts one (h, w) image over its cluster: ``pixels`` a
+    block (a multiple of 32, at most 256: the image's pixels over 16
+    blocks, rounded up), ``cluster`` blocks (one cluster an image, the
+    last block's run may be short), ``tile_rows`` the most rows a block's
+    padded tile spans (its rows plus a one-row halo), ``smem`` bytes a
+    block. Raises NotImplementedError for an image the cluster cannot
+    hold on chip: more than 16 x 256 = 4096 pixels, or rows too wide for
+    a block's shared memory."""
+    hw = h * w
+    pb = 32 * -(-(-(-hw // MAX_CLUSTER)) // 32)
+    if pb > PIXELS_MAX:
+        raise NotImplementedError(
+            f"fused layer1 kernel: an image of {h}x{w} = {hw} pixels exceeds "
+            f"one cluster's {MAX_CLUSTER} blocks x {PIXELS_MAX} pixels = "
+            f"{MAX_PIXELS}")
+    tile_rows = max((min(p0 + pb, hw) - 1) // w - p0 // w + 3
+                    for p0 in range(0, hw, pb))
+    smem = 2 * CHANNELS * WPITCH + tile_rows * (w + 2) * PIX
+    if smem + 40 > SMEM_LIMIT:
+        raise NotImplementedError(
+            f"fused layer1 kernel: rows of width {w} need {smem} bytes of "
+            f"shared memory a block, more than {SMEM_LIMIT}")
+    return {"pixels": pb, "cluster": -(-hw // pb), "tile_rows": tile_rows,
+            "smem": smem}
+
+
+def kernel_weights(w_q: torch.Tensor) -> torch.Tensor:
+    """`pack_blocks`' (n_convs, 9C, C) int8 weights as kernel D reads
+    them: (n_convs, C, WPITCH) rows [out channel][im2col k], zero padded
+    to the pitch the `mma` fragment loads want. Made once and kept on
+    ``w_q`` (again only after ``w_q`` changes in place)."""
+    kept = getattr(w_q, "_kernel_rows", None)
+    if kept is not None and kept[0] == w_q._version:
+        return kept[1]
+    rows = torch.zeros((w_q.shape[0], w_q.shape[2], WPITCH),
+                       dtype=torch.int8, device=w_q.device)
+    rows[:, :, :w_q.shape[1]] = w_q.transpose(1, 2)
+    w_q._kernel_rows = (w_q._version, rows)
+    return rows
+
+
+def kernel_resources(dtype: torch.dtype, h: int, w: int) -> dict:
+    """What kernel D in ``dtype`` takes at an (h, w) image (needs the
+    card): ``registers``, spill bytes and static shared memory from
+    ``ptxas -v``; from the runtime ``runtime_registers``, ``local_bytes``,
+    ``smem_bytes`` and ``threads`` a block, ``blocks_per_sm``, ``sms``,
+    and ``max_active_clusters`` (``cudaOccupancyMaxActiveClusters`` at
+    the image's ``cluster`` size)."""
+    tag = {torch.float32: "layer1_kernelIfE",
+           torch.bfloat16: "layer1_kernelI13__nv_bfloat16E"}[dtype]
+    log = _build.build_log("fused_layer1")
+    entry = [part for part in log.split("Compiling entry function")
+             if tag in part.split("\n", 1)[0]]
+    if len(entry) != 1:
+        raise RuntimeError(f"the build log holds no single {tag}:\n{log}")
+
+    def read(pattern):
+        found = re.search(pattern, entry[0])
+        return int(found.group(1)) if found else 0
+    geo = cluster_geometry(h, w)
+    info = (ctypes.c_int * 7)()
+    _build.check(_build.library("fused_layer1").egotap_fused_layer1_occupancy(
+        _DTYPE_CODE[dtype], w, geo["pixels"], geo["cluster"],
+        geo["tile_rows"], ctypes.addressof(info)), "fused_layer1 occupancy")
+    return dict(geo, registers=read(r"Used (\d+) registers"),
+                spill_store_bytes=read(r"(\d+) bytes spill stores"),
+                spill_load_bytes=read(r"(\d+) bytes spill loads"),
+                static_smem_bytes=read(r"(\d+) bytes smem"),
+                max_active_clusters=info[0], runtime_registers=info[1],
+                local_bytes=info[2], smem_bytes=info[3], threads=info[4],
+                blocks_per_sm=info[5], sms=info[6])
 
 
 def fused_layer1_int8(x: torch.Tensor, w_q: torch.Tensor,
                       w_scale: torch.Tensor, bias: torch.Tensor
                       ) -> torch.Tensor:
     """x (N, H, W, 64) -> (N, H, W, 64); w_q/w_scale/bias from
-    `pack_blocks` (stride-1, equal-channel blocks: every layer1)."""
+    `pack_blocks` (stride-1, equal-channel blocks: every layer1).
+
+    On the card one thread-block cluster holds each image on chip for the
+    whole stage (`cluster_geometry`): an image of more than 4096 pixels
+    (64 x 64) raises NotImplementedError, as the JAX kernel holds one
+    image in VMEM."""
     if x.device.type == "cpu":
         return fused_layer1_plain(x, w_q, w_scale, bias)
     n, h, w, c = x.shape
@@ -125,19 +216,17 @@ def fused_layer1_int8(x: torch.Tensor, w_q: torch.Tensor,
         raise ValueError("x, w_q, w_scale and bias must share a device")
     if n > 65535:
         raise NotImplementedError("fused layer1 kernel: N <= 65535")
+    geo = cluster_geometry(h, w)
     refuse_grad("fused layer1", x, w_scale, bias)
-    refuse_grad("fused layer1", x, w_scale, bias)
-    w_q, w_scale, bias = (t.contiguous() for t in (w_q, w_scale.float(),
-                                                   bias.float()))
+    rows = kernel_weights(w_q)
+    w_scale, bias = (t.float().contiguous() for t in (w_scale, bias))
     out = torch.empty_like(x)
-    scratch = torch.empty((2, n, h, w, c), dtype=torch.float32,
-                          device=x.device)
-    slots = torch.zeros((n_convs, n), dtype=torch.int32, device=x.device)
     lib = _build.library("fused_layer1")
     _build.check(lib.egotap_fused_layer1(
-        x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), scratch.data_ptr(), slots.data_ptr(), n, h, w,
-        n_convs, _DTYPE_CODE[x.dtype], _build.stream_ptr(x)), "fused_layer1")
+        x.data_ptr(), rows.data_ptr(), w_scale.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), n, h, w, geo["pixels"], geo["cluster"],
+        geo["tile_rows"], n_convs, _DTYPE_CODE[x.dtype],
+        _build.stream_ptr(x)), "fused_layer1")
     fused_layer1_int8.launches += 1
     return out
 

@@ -56,11 +56,13 @@ def upsample2x_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 # kernel vs `upsample2x_plain` on the card, (max, rms) relative error
-# (`ops.kernel_errors`). Both round once from the same f32 lerps, so in
-# bf16 only a final rounding flips where FMA contraction moves the f32
-# value across a tie: one bf16 ulp, at most 2^-7 of max|plain|. On an H100
-# at the decoder's shapes the kernel read at most (3.4e-3, 1.4e-4); a
-# second rounding after the row pass reads an rms of 2.3e-3 or more.
+# (`ops.kernel_errors`). The kernel rounds each multiply and add as the
+# plain version does (no FMA contraction) and the output once, so on an
+# H100 it reads 0 at the decoder's shapes in both dtypes; the limits leave
+# room for a contracted build, whose bf16 output flips one ulp where the
+# f32 value crosses a tie: at most 2^-7 of max|plain| (the kernel before
+# that change read at most (3.4e-3, 1.4e-4)). A second rounding after the
+# row pass reads an rms of 2.3e-3 or more.
 TOL = {torch.float32: (2e-5, 2e-6), torch.bfloat16: (8e-3, 5e-4)}
 
 _VEC = {torch.float32: (4, 0), torch.bfloat16: (8, 1)}
@@ -68,7 +70,6 @@ _VEC = {torch.float32: (4, 0), torch.bfloat16: (8, 1)}
 THREADS = 256                 # a block of kernel A
 BAND_ROWS = 16                # output rows a block, at most
 SMEM_BUDGET = 48 * 1024       # staged input bytes a block, at most
-STREAM_STORES = False         # `st.global.cs` for the output (see PERF.md)
 
 
 def tap_table(in_size: int) -> np.ndarray:
@@ -131,8 +132,8 @@ def kernel_resources(dtype: torch.dtype, smem: int) -> dict:
     static shared memory from ``ptxas -v``; ``blocks_per_sm``,
     ``runtime_registers``, ``local_bytes``, ``smem_bytes`` and
     ``threads`` from the runtime."""
-    tag = {torch.float32: "upsample2x_kernelIfLb0",
-           torch.bfloat16: "upsample2x_kernelI13__nv_bfloat16Lb0"}[dtype]
+    tag = {torch.float32: "upsample2x_kernelIfE",
+           torch.bfloat16: "upsample2x_kernelI13__nv_bfloat16E"}[dtype]
     log = _build.build_log("upsample")
     entry = [part for part in log.split("Compiling entry function")
              if tag in part.split("\n", 1)[0]]
@@ -154,12 +155,10 @@ def kernel_resources(dtype: torch.dtype, smem: int) -> dict:
             "threads": info[4]}
 
 
-def upsample2x_align_corners(x: torch.Tensor,
-                             stream_stores: bool = None) -> torch.Tensor:
+def upsample2x_align_corners(x: torch.Tensor) -> torch.Tensor:
     """Exact ``Upsample(scale_factor=2, bilinear, align_corners=True)``.
 
-    x: (..., H, W, C) NHWC. Returns (..., 2H, 2W, C) in x's dtype.
-    ``stream_stores`` overrides `STREAM_STORES` (the card's store hint)."""
+    x: (..., H, W, C) NHWC. Returns (..., 2H, 2W, C) in x's dtype."""
     if x.device.type == "cpu":
         return upsample2x_plain(x)
     if x.dtype not in _VEC:
@@ -173,14 +172,12 @@ def upsample2x_align_corners(x: torch.Tensor,
         x = x.clone()
     out = torch.empty(x.shape[:-3] + (2 * h, 2 * w, c), dtype=x.dtype,
                       device=x.device)
-    if stream_stores is None:
-        stream_stores = STREAM_STORES
     lib = _build.library("upsample")
     _build.check(lib.egotap_upsample2x(
         x.data_ptr(), out.data_ptr(), _device_taps(h, x.device).data_ptr(),
         _device_taps(w, x.device).data_ptr(), n, h, w, c, _VEC[x.dtype][1],
-        geo["band"], geo["cv"], geo["staged"], int(stream_stores),
-        _build.stream_ptr(x)), "upsample2x")
+        geo["band"], geo["cv"], geo["staged"], _build.stream_ptr(x)),
+        "upsample2x")
     upsample2x_align_corners.launches += 1
     return out
 

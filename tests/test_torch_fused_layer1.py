@@ -17,7 +17,7 @@ from egotap_tpu.ops import quant as jq
 from egotap_tpu_torch.compat.from_jax import heatmap_net_from_jax, jax_scales
 from egotap_tpu_torch.models.resnet import BasicBlock, ResNetEncoder
 from egotap_tpu_torch.ops import fused_layer1 as tf
-from egotap_tpu_torch.ops.quant import prequantize
+from egotap_tpu_torch.ops.quant import im2col, int8_matmul, prequantize
 from tests.test_fused_layer1 import _block
 from tests.test_torch_compat import heatmap_vars
 
@@ -137,3 +137,102 @@ def test_encoder_quant_matches_jax(fused):
         a, b = a.numpy(), np.asarray(b)
         rel = np.linalg.norm(a - b) / np.linalg.norm(b)
         assert rel <= ENCODER_TOL, (i, rel)
+
+
+def cluster_schedule(x, w_q, w_scale, bias, per_band_scale=False,
+                     stale_halo=False):
+    """Kernel D's cluster schedule (`csrc/fused_layer1.cu`), emulated on
+    the CPU: each image's pixels cut into `cluster_geometry`'s runs, one a
+    block; per conv each block takes the max of its own pixels, the
+    maxima are reduced to the image's (``per_band_scale``: each block
+    keeps its own, the fault a cluster design can make), each block
+    quantizes only its own pixels, and each block's conv reads the pixels
+    it does not own from their owners' codes of this conv
+    (``stale_halo``: of the previous conv, zeros before the first)."""
+    n, h, w, c = x.shape
+    geo = tf.cluster_geometry(h, w)
+    pb, cl = geo["pixels"], geo["cluster"]
+    owner = torch.arange(h * w) // pb                   # block of each pixel
+    act = x.float().reshape(n, h * w, c)
+    residual = act
+    prev = torch.zeros(n, h * w, c, dtype=torch.int8)
+    for conv in range(w_q.shape[0]):
+        band_max = torch.stack([act[:, owner == b].abs().amax(dim=(1, 2))
+                                for b in range(cl)], dim=1)      # (n, cl)
+        if not per_band_scale:
+            band_max = band_max.amax(dim=1, keepdim=True).expand(n, cl)
+        a_scale = (torch.clamp_min(band_max, 1e-12)
+                   / tf.f32_scalar(act, 127.0))[:, owner, None]  # per pixel
+        codes = torch.round(act / a_scale).clamp_(-127, 127).to(torch.int8)
+        acc = torch.empty(n, h * w, c, dtype=torch.int32)
+        for b in range(cl):
+            mine = owner == b
+            seen = codes if not stale_halo else torch.where(
+                mine[None, :, None], codes, prev)
+            cols, _ = im2col(seen.reshape(n, h, w, c), 3, 1, 1)
+            cols = cols.reshape(n, h * w, -1)[:, mine]
+            acc[:, mine] = int8_matmul(cols.reshape(-1, cols.shape[-1]),
+                                       w_q[conv].t()).reshape(n, -1, c)
+        prev = codes
+        out = acc.float() * (a_scale * w_scale[conv]) + bias[conv]
+        if conv % 2 == 0:
+            act = torch.relu(out)
+        else:
+            act = torch.relu(out + residual)
+            residual = act
+    return act.reshape(n, h, w, c).to(x.dtype)
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 16), (2, 20, 12), (1, 64, 64)])
+def test_cluster_schedule_matches_plain(shape):
+    """The schedule equals the plain version bit for bit (every image cut
+    over several blocks, with a short last run at 20 x 12); one scale per
+    block, or a halo from the previous conv's codes, does not."""
+    _, port = _blocks(7, 2)
+    packed = tf.pack_blocks(port, 1e-5)
+    n, h, w = shape
+    assert tf.cluster_geometry(h, w)["cluster"] > 1
+    ramp = 1 + torch.arange(h * w).reshape(1, h, w, 1) / (h * w)
+    x = torch.from_numpy(np.random.default_rng(8).normal(
+        size=(n, h, w, C)).astype(np.float32)) * ramp
+    ref = tf.fused_layer1_plain(x, *packed)
+    torch.testing.assert_close(cluster_schedule(x, *packed), ref,
+                               rtol=0, atol=0)
+    for fault in ("per_band_scale", "stale_halo"):
+        bad = cluster_schedule(x, *packed, **{fault: True})
+        assert (bad - ref).abs().max() > 1e-3 * ref.abs().max(), fault
+
+
+@pytest.mark.parametrize("h,w,pixels,cluster,tile_rows", [
+    (64, 64, 256, 16, 6),          # serving: 4 rows a block
+    (16, 16, 32, 8, 4), (8, 8, 32, 2, 6), (20, 12, 32, 8, 6),
+    (50, 30, 96, 16, 6),           # runs start mid-row, short last run
+    (1, 1, 32, 1, 3)])
+def test_cluster_geometry(h, w, pixels, cluster, tile_rows):
+    geo = tf.cluster_geometry(h, w)
+    assert (geo["pixels"], geo["cluster"], geo["tile_rows"]) == (
+        pixels, cluster, tile_rows)
+    assert (cluster - 1) * pixels < h * w <= cluster * pixels
+    assert geo["smem"] <= tf.SMEM_LIMIT
+
+
+def test_cluster_geometry_refuses_images_off_chip():
+    with pytest.raises(NotImplementedError, match="4096"):
+        tf.cluster_geometry(65, 64)
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        tf.cluster_geometry(1, 4096)
+
+
+def test_kernel_weights_layout_is_kept():
+    """[conv][out channel][k] rows, zero padded to the pitch; made once
+    per w_q, again after w_q changes in place."""
+    _, port = _blocks(9, 2)
+    w_q = tf.pack_blocks(port, 1e-5)[0]
+    rows = tf.kernel_weights(w_q)
+    assert rows.shape == (4, C, tf.WPITCH) and rows.dtype == torch.int8
+    assert torch.equal(rows[:, :, :9 * C], w_q.transpose(1, 2))
+    assert not rows[:, :, 9 * C:].any()
+    assert tf.kernel_weights(w_q) is rows
+    w_q[0, 0, 0] = -w_q[0, 0, 0] - 1
+    again = tf.kernel_weights(w_q)
+    assert again is not rows and again[0, 0, 0] == w_q[0, 0, 0]

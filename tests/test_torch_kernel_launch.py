@@ -184,8 +184,8 @@ def test_weight_rows(dtype, pitch):
                                    (2, 3, 1, 5, 64)])
 def test_upsample_launch_arguments(fake, dtype, code, shape):
     """Leading dims folded into N, then H, W, C, the dtype code and
-    `launch_geometry`'s band, channel vectors and staged rows, the store
-    hint; the tap tables of H and W are passed as device pointers."""
+    `launch_geometry`'s band, channel vectors and staged rows; the tap
+    tables of H and W are passed as device pointers."""
     x = _meta(*shape, dtype=dtype)
     out = up.upsample2x_align_corners(x)
     assert out.shape == shape[:-3] + (2 * shape[-3], 2 * shape[-2],
@@ -194,8 +194,8 @@ def test_upsample_launch_arguments(fake, dtype, code, shape):
     h, w, c = shape[-3:]
     n = x.numel() // (h * w * c)
     geo = up.launch_geometry(n, h, w, c, dtype)
-    assert args[4:13] == (n, h, w, c, code, geo["band"], geo["cv"],
-                          geo["staged"], int(up.STREAM_STORES))
+    assert args[4:12] == (n, h, w, c, code, geo["band"], geo["cv"],
+                          geo["staged"])
 
 
 def test_upsample_refusals_launch_nothing(fake):
@@ -207,3 +207,33 @@ def test_upsample_refusals_launch_nothing(fake):
         up.upsample2x_align_corners(_meta(1, 4, 4, 8, dtype=torch.float16))
     assert not fake.calls
 
+
+@pytest.mark.parametrize("dtype,code", [(torch.float32, 0),
+                                        (torch.bfloat16, 1)])
+@pytest.mark.parametrize("shape,geometry", [
+    ((64, 64, 64, 64), (256, 16, 6)), ((3, 16, 16, 64), (32, 8, 4)),
+    ((2, 20, 12, 64), (32, 8, 6)), ((1, 50, 30, 64), (96, 16, 6))])
+def test_fused_layer1_launch_arguments(fake, dtype, code, shape, geometry):
+    """N, H, W, `cluster_geometry`'s pixels a block, blocks a cluster and
+    tile rows, the conv count and the dtype code; the weights reach the
+    kernel as `kernel_weights`' rows, made at the first call and kept."""
+    x = _meta(*shape, dtype=dtype)
+    packed = _layer1_args(n_convs=6)
+    fl.fused_layer1_int8(x, *packed)
+    fl.fused_layer1_int8(x, *packed)
+    (_, first), (_, second) = fake.calls
+    n, h, w, _ = shape
+    assert first[5:13] == (n, h, w, *geometry, 6, code)
+    assert second == first
+    assert packed[0]._kernel_rows[1].shape == (6, 64, fl.WPITCH)
+
+
+def test_fused_layer1_refusals_launch_nothing(fake):
+    packed = _layer1_args()
+    with pytest.raises(NotImplementedError, match="4096"):   # off chip
+        fl.fused_layer1_int8(_meta(1, 65, 64, 64), *packed)
+    with pytest.raises(NotImplementedError):                 # C != 64
+        fl.fused_layer1_int8(_meta(1, 8, 8, 32), *packed)
+    with pytest.raises(ValueError):                          # odd convs
+        fl.fused_layer1_int8(_meta(1, 8, 8, 64), *_layer1_args(n_convs=3))
+    assert not fake.calls

@@ -308,12 +308,19 @@ def _fused(x, packed):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n_blocks,shape", [
-    (1, (3, 16, 16, 64)),              # one block: 2 convs
-    (2, (2, 8, 8, 64)),                # 8x8: a tile spans 4 images' worth
-    (3, (2, 20, 12, 64)),              # ragged last tile, 6 convs
+    (1, (3, 16, 16, 64)),              # one residual block: 2 convs
+    (2, (2, 8, 8, 64)),                # a cluster of 2 blocks
+    (3, (2, 20, 12, 64)),              # short last run, 6 convs
+    (2, (64, 64, 64, 64)),             # serving: 16 blocks of 4 rows
+    (2, (3, 50, 30, 64)),              # runs start mid-row, short last run
+    (1, (2, 1, 1, 64)),                # one pixel
 ])
 def test_fused_layer1_matches_plain(gen, n_blocks, shape, dtype):
-    x = torch.randn(shape, generator=gen, device="cuda").to(
+    """Pixels scaled by a ramp over the image, so that one scale a block
+    instead of one an image would show."""
+    n, h, w, c = shape
+    ramp = 1 + torch.arange(h * w, device="cuda").reshape(1, h, w, 1) / 256
+    x = (torch.randn(shape, generator=gen, device="cuda") * ramp).to(
         getattr(torch, dtype))
     packed = _packed(n_blocks)
     _close(_fused(x, packed), fl.fused_layer1_plain(x, *packed),
@@ -346,3 +353,57 @@ def test_fused_layer1_refusals(gen):
     with pytest.raises(ValueError):                       # not contiguous
         fl.fused_layer1_int8(x, *packed)
 
+
+def test_fused_layer1_refuses_grad(gen):
+    """With grad mode on, an input that requires grad is refused (the
+    kernel has no backward); under no_grad the same call launches."""
+    packed = _packed(1)
+    x = torch.randn(2, 8, 8, 64, generator=gen, device="cuda")
+    x.requires_grad_(True)
+    before = fl.fused_layer1_int8.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        fl.fused_layer1_int8(x, *packed)
+    assert fl.fused_layer1_int8.launches == before
+    with torch.no_grad():
+        got = _fused(x, packed)
+    assert got.grad_fn is None and torch.isfinite(got).all()
+
+
+def test_fused_layer1_refuses_images_off_chip(gen):
+    """An image of more than 16 x 256 pixels does not fit one cluster:
+    the card raises and launches nothing (no plain fallback)."""
+    packed = _packed(1)
+    before = fl.fused_layer1_int8.launches
+    with pytest.raises(NotImplementedError, match="4096"):
+        fl.fused_layer1_int8(torch.randn(1, 65, 64, 64, device="cuda"),
+                             *packed)
+    assert fl.fused_layer1_int8.launches == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_layer1_kernel_resources(gen, dtype):
+    """At the serving image (64 x 64, clusters of 16): the build log and
+    the runtime agree on the registers, nothing spills, a block fits an
+    SM and the card holds at least one cluster at once."""
+    res = fl.kernel_resources(getattr(torch, dtype), 64, 64)
+    assert res["cluster"] == 16 and res["pixels"] == 256, res
+    assert res["registers"] == res["runtime_registers"] > 0
+    assert res["spill_store_bytes"] == res["local_bytes"] == 0, res
+    assert res["blocks_per_sm"] >= 1 and res["max_active_clusters"] >= 1, res
+
+
+def test_fused_layer1_rounds_ties_as_plain(gen):
+    """Conv 0's codes on and beside half-way points: x holds (j + 1/2) m /
+    127 and the floats next to them, with max|x| = m, so that x / a_scale
+    falls on a tie or within an ulp of one; the kernel's division must
+    round as the plain version's."""
+    packed = _packed(1, seed=2)
+    m = 3.0
+    ties = (torch.arange(-127, 127, device="cuda") + 0.5) * (m / 127)
+    vals = torch.cat([ties, torch.nextafter(ties, ties + 1),
+                      torch.nextafter(ties, ties - 1)])
+    x = vals[torch.randint(len(vals), (2, 16, 16, 64), generator=gen,
+                           device="cuda")]
+    x[:, 0, 0, 0] = m
+    _close(_fused(x, packed), fl.fused_layer1_plain(x, *packed),
+           fl.TOL[torch.float32])
