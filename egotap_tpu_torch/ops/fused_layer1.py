@@ -104,13 +104,12 @@ TOL = {torch.float32: (1e-6, 1e-7), torch.bfloat16: (1e-6, 1e-7)}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-THREADS = 256                 # a block: 8 warps of 32 pixels
-PIXELS_MAX = 256              # pixels a block, at most
+PIXELS_MAX = 256              # pixels a block (8 warps of 32), at most
 MAX_CLUSTER = 16              # blocks a cluster (one cluster an image)
-MAX_PIXELS = PIXELS_MAX * MAX_CLUSTER    # pixels of an image, at most
-PIX = 80                      # bytes per pixel of a code run and tile
+PIX = 80                      # bytes per pixel of a code tile
 WPITCH = 9 * CHANNELS + 16    # bytes per output channel of the weights
 SMEM_LIMIT = 232448           # shared memory a block may opt in to
+STATIC_SMEM = 1088            # the kernel's static shared memory
 
 
 def cluster_geometry(h: int, w: int) -> dict:
@@ -123,16 +122,17 @@ def cluster_geometry(h: int, w: int) -> dict:
     hold on chip: more than 16 x 256 = 4096 pixels, or rows too wide for
     a block's shared memory."""
     hw = h * w
-    pb = 32 * -(-(-(-hw // MAX_CLUSTER)) // 32)
+    per_block = -(-hw // MAX_CLUSTER)               # ceil(hw / 16)
+    pb = 32 * -(-per_block // 32)                   # rounded up to a warp
     if pb > PIXELS_MAX:
         raise NotImplementedError(
             f"fused layer1 kernel: an image of {h}x{w} = {hw} pixels exceeds "
             f"one cluster's {MAX_CLUSTER} blocks x {PIXELS_MAX} pixels = "
-            f"{MAX_PIXELS}")
+            f"{MAX_CLUSTER * PIXELS_MAX}")
     tile_rows = max((min(p0 + pb, hw) - 1) // w - p0 // w + 3
                     for p0 in range(0, hw, pb))
     smem = 2 * CHANNELS * WPITCH + tile_rows * (w + 2) * PIX
-    if smem + 40 > SMEM_LIMIT:
+    if smem + STATIC_SMEM > SMEM_LIMIT:
         raise NotImplementedError(
             f"fused layer1 kernel: rows of width {w} need {smem} bytes of "
             f"shared memory a block, more than {SMEM_LIMIT}")

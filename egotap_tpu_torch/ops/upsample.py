@@ -60,9 +60,9 @@ def upsample2x_plain(x: torch.Tensor) -> torch.Tensor:
 # plain version does (no FMA contraction) and the output once, so on an
 # H100 it reads 0 at the decoder's shapes in both dtypes; the limits leave
 # room for a contracted build, whose bf16 output flips one ulp where the
-# f32 value crosses a tie: at most 2^-7 of max|plain| (the kernel before
-# that change read at most (3.4e-3, 1.4e-4)). A second rounding after the
-# row pass reads an rms of 2.3e-3 or more.
+# f32 value crosses a tie: at most 2^-7 of max|plain|, read as (3.4e-3,
+# 1.4e-4). A second rounding after the row pass reads an rms of 2.3e-3 or
+# more.
 TOL = {torch.float32: (2e-5, 2e-6), torch.bfloat16: (8e-3, 5e-4)}
 
 _VEC = {torch.float32: (4, 0), torch.bfloat16: (8, 1)}

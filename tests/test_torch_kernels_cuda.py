@@ -390,6 +390,7 @@ def test_fused_layer1_kernel_resources(gen, dtype):
     assert res["registers"] == res["runtime_registers"] > 0
     assert res["spill_store_bytes"] == res["local_bytes"] == 0, res
     assert res["blocks_per_sm"] >= 1 and res["max_active_clusters"] >= 1, res
+    assert res["smem_bytes"] - res["smem"] <= fl.STATIC_SMEM, res
 
 
 def test_fused_layer1_rounds_ties_as_plain(gen):
