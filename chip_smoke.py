@@ -43,10 +43,33 @@ Exits non-zero, printing no result, when there is no card. Phases:
    bf16 against the unfused int8 encoder, and one call of the unpacked
    attention wrapper at the Grid-ViT's (32, 8, 576, 128) in bf16 and
    in f32.
-5. One JSON line with every kernel's numbers, then the result line.
+5. Stage-2 training at full width (`bench.py` train: the egotap_unrealego
+   preset, UnrealEgo, resnet18 frozen nets, Grid-ViT 1024 x 3 layers x 8
+   heads over 576 tokens, PU hidden 512, bf16 amp, AdamW under
+   cos_anneal_warmup, batch 32): `LifterTask.train_step` 12 times from a
+   seeded `init_state` on N(0, 1) rgb and poses; the median CUDA-event
+   time of the last 10 and pairs/s; losses finite, lifter parameters
+   moved (the ViT's query weights and the PU chain's top cell, reachable
+   only through the backward of B and C), the frozen nets' parameters
+   unchanged bit for bit and their running statistics moved, launches
+   per step A 6, B 3, C 1, D 0; the backward recompute of B and C timed
+   by events and inside one profiled step. Then one f32 step of batch 2
+   on the card against the same step on the CPU (losses, and the
+   lifter's flattened gradient by relative L2), and the same check
+   rejecting a faulty control (B's output detached from the graph).
+6. The eval step of the serving configuration (bf16, int8 heatmap nets
+   and lifter calibrated by `prepare_inference` on 2 batches of rgb + 0.1
+   noise, batch 32): launches as a forward, its pose equal bit for bit
+   to a `Predictor` with the same weights and scales, mpjpe / pa_mpjpe
+   within 1e-4 of float64 numpy (norms, SVD Procrustes with the
+   reflection fix), the median time of 10 steps.
+7. One JSON line with every kernel's numbers (with each bf16 kernel's
+   launches per training and eval step, and B's and C's backward
+   recompute time a launch), then the result line.
 """
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -215,13 +238,14 @@ def attention_bound(torch, q):
     flops = 4 * q.shape[0] * q.shape[1] ** 2 * q.shape[2]
     t_bytes = 4 * q.numel() * q.element_size() / HBM_BYTES_PER_S
     if q.dtype == torch.bfloat16:
-        t_ops, by = flops / BF16_TENSOR_FLOPS, "operations"
+        t_ops = flops / BF16_TENSOR_FLOPS
     else:
-        t_ops, by = 3 * flops / TF32_TENSOR_FLOPS, "operations (3xTF32)"
+        t_ops = 3 * flops / TF32_TENSOR_FLOPS
         print(f"    f32 bounds: 3xTF32 {1e3 * t_ops:.4f} ms, CUDA cores "
               f"{1e3 * flops / F32_FLOPS:.4f} ms, bytes "
               f"{1e3 * t_bytes:.4f} ms")
-    return 1e3 * max(t_ops, t_bytes), by if t_ops >= t_bytes else "bytes"
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def phase_kernels(torch, F, card):
@@ -800,6 +824,329 @@ def phase_entry_points(torch, card):
     return enc_counts["fused_layer1"], unpacked
 
 
+# stage-2 training (bench.py:200-210): the egotap_unrealego preset
+TRAIN_ITERS_PER_EPOCH = 1000
+TRAIN_STEPS = 12                   # the last TIMED_STEPS are timed
+TIMED_STEPS = 10
+# launches per training step: the frozen nets' decoders (A, 3 a net, no
+# gradient), the Grid-ViT's 3 blocks (B) and the PU chain (C), forward
+# only; the backward of B and C recomputes their plain versions
+PER_TRAIN_STEP = {"upsample": 6, "attention": 3, "pu_chain": 1,
+                  "attention_unpacked": 0, "fused_layer1": 0}
+# f32 step on the card vs on the CPU from the same weights and batch:
+# losses within TRAIN_LOSS_RTOL (cos_sim, a sum of 15 bone cosines that
+# cancels to near 0 at random weights, against its largest value), and
+# the lifter's flattened gradient within TRAIN_GRAD_TOL relative L2
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
+COS_SIM_SCALE = 0.01 * 0.1 * 15    # |lambda_cos_sim * lambda_mpjpe| x bones
+EVAL_METRIC_RTOL = 1e-4            # eval metrics vs float64 numpy
+
+
+def train_inputs(torch, gen, batch):
+    return {"input_rgb": torch.randn(batch, 2, 256, 256, 3, generator=gen,
+                                     device=gen.device),
+            "gt_local_pose": torch.randn(batch, 16, 3, generator=gen,
+                                         device=gen.device)}
+
+
+def flat_grad(torch, grads, like):
+    """The gradients of the parameters that have one in ``like``,
+    flattened into one f32 vector on the host; a missing one is zero."""
+    return torch.cat([(grads[n] if grads[n] is not None else
+                       torch.zeros_like(g)).float().flatten().cpu()
+                      for n, g in like.items() if g is not None])
+
+
+def loss_gap(name, got, want):
+    """|got - want| over the scale its rtol is taken against."""
+    scale = COS_SIM_SCALE if name == "cos_sim" else abs(want)
+    return abs(got - want) / scale
+
+
+def recompute_ms(torch, card):
+    """CUDA-event times of the backward recompute of kernels B and C at
+    the training step's shapes (`ops.plain_vjp` over the plain version),
+    per launch, in bf16 and f32."""
+    from egotap_tpu_torch.ops import attention, plain_vjp, pu_kernel
+    g = torch.Generator(device="cuda").manual_seed(21)
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v, ct = (torch.randn(32, 576, 1024, generator=g,
+                                   device="cuda").to(dt) for _ in range(4))
+        out[("attention", dt)] = time_ms(torch, lambda: plain_vjp(
+            lambda q, k, v: attention.attention_packed_plain(q, k, v, 8),
+            (q, k, v), (True,) * 3, ct, attention.BACKWARD_LABEL), iters=5)
+        b, J, H = 32, 15, 512
+
+        def u(*shape):
+            return (torch.rand(shape, generator=g, device="cuda") * 2 - 1
+                    ) * H ** -0.5
+        saved = (torch.sigmoid(torch.randn(b, J, H, generator=g,
+                                           device="cuda")),
+                 0.5 * torch.randn(b, J, 4 * H, generator=g, device="cuda"),
+                 u(4 * H, H).to(dt).t(), u(H, H).to(dt).t(), u(H),
+                 u(4 * H, H).to(dt).t(), u(4 * H), u(4 * H, H).to(dt).t(),
+                 u(4 * H))
+        ct = torch.randn(b, J, H, generator=g, device="cuda")
+        out[("pu_chain", dt)] = time_ms(torch, lambda: plain_vjp(
+            pu_kernel._plain_flat, saved, (True,) * 9, ct,
+            pu_kernel.BACKWARD_LABEL), iters=5)
+        b_ms, c_ms = out[("attention", dt)], out[("pu_chain", dt)]
+        print(f"  backward recompute {dt}: kernel B {b_ms:.3f} ms a launch, "
+              f"kernel C {c_ms:.3f} ms a launch [{card}]")
+    return out
+
+
+def profile_train_step(torch, task, state, batch, card):
+    """Device time of the kernels of one training step under
+    torch.profiler, and of those of the backward recompute of B and C
+    within it (their profiler ranges; a range's own span on the device is
+    not a kernel and is printed apart)."""
+    from torch.profiler import ProfilerActivity, profile
+    from egotap_tpu_torch.breakdown import range_kernels_ms
+    from egotap_tpu_torch.ops import attention, pu_kernel
+    labels = {"attention": attention.BACKWARD_LABEL,
+              "pu_chain": pu_kernel.BACKWARD_LABEL}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        task.train_step(state, batch)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    total = sum(e.device_time_total for e in events if e.device_type == cuda
+                and e.name not in labels.values()) / 1e3
+    ranges, spans = {}, {}
+    for key, label in labels.items():
+        ranges[key] = sum(range_kernels_ms(e, labels.values()) for e in events
+                          if e.name == label and e.device_type != cuda)
+        spans[key] = sum(e.device_time_total for e in events
+                         if e.name == label and e.device_type == cuda) / 1e3
+    print(f"  profiled training step: wall {wall:.3f} ms, device kernels "
+          f"{total:.3f} ms, of which the backward recompute of B "
+          f"{ranges['attention']:.3f} ms (3 launches; their spans on the "
+          f"device {spans['attention']:.3f} ms) and of C "
+          f"{ranges['pu_chain']:.3f} ms (span {spans['pu_chain']:.3f} ms) "
+          f"[{card}]")
+
+
+def phase_train(torch, card):
+    """Stage-2 training at full width (bench.py train): TRAIN_STEPS steps
+    of batch 32 in bf16 with the launch counters zeroed before them; then
+    the f32 step on the card against the CPU at batch 2, and its faulty
+    control."""
+    from egotap_tpu_torch.core.config import Config
+    from egotap_tpu_torch.models import vit
+    from egotap_tpu_torch.train.tasks import LifterTask
+
+    cfg = Config.from_preset("egotap_unrealego")
+    print(f"  config: {cfg.model_name} frozen nets, Grid-ViT 1024 x 3 x 8 "
+          f"heads, ae_hidden_size {cfg.ae_hidden_size}, "
+          f"{cfg.optimizer_type} {cfg.lr_policy} lr {cfg.lr}, niter "
+          f"{cfg.niter} + {cfg.niter_decay}, batch {cfg.batch_size}, "
+          f"use_amp {cfg.use_amp}")
+    t0 = time.perf_counter()
+    task = LifterTask(cfg, device="cuda")
+    state = task.init_state(seed=0, iters_per_epoch=TRAIN_ITERS_PER_EPOCH)
+    torch.cuda.synchronize()
+    print(f"  state built in {time.perf_counter() - t0:.2f} s")
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    batches = [train_inputs(torch, gen, cfg.batch_size)
+               for _ in range(TRAIN_STEPS)]
+    lifter0 = {n: p.detach().clone()
+               for n, p in state.lifter.named_parameters()}
+    frozen0 = {k: {n: t.clone() for n, t in net.state_dict().items()}
+               for k, net in state.frozen.items()}
+    reset_counts()
+    times, losses = [], []
+    for b in batches:
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        state, loss = task.train_step(state, b)
+        e.record()
+        times.append((s, e))
+        losses.append(loss)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"  launches over {TRAIN_STEPS} training steps: {counts}")
+    for n, c in counts.items():
+        if c != TRAIN_STEPS * PER_TRAIN_STEP[n]:
+            raise AssertionError(f"training: {n} launched {c} times, "
+                                 f"expected {TRAIN_STEPS * PER_TRAIN_STEP[n]}")
+    values = [{k: float(v) for k, v in loss.items()} for loss in losses]
+    print(f"  losses, first and last step: {values[0]} {values[-1]}")
+    if not all(math.isfinite(v) for d in values for v in d.values()):
+        raise AssertionError("training: a loss is not finite")
+    ms = statistics.median(s.elapsed_time(e) for s, e in times[-TIMED_STEPS:])
+    print(f"  training step median {ms:.3f} ms over the last {TIMED_STEPS} "
+          f"of {TRAIN_STEPS} steps of batch {cfg.batch_size} = "
+          f"{1e3 * cfg.batch_size / ms:.2f} pairs/s [{card}]")
+    moved = [n for n, p in state.lifter.named_parameters()
+             if not torch.equal(p, lifter0[n])]
+    print(f"  lifter: {len(moved)} of {len(lifter0)} parameter tensors moved")
+    for name in ("pos_heatmap_encoder.vit.encoder.layer.0.attention."
+                 "attention.query.weight",          # only through B's backward
+                 "skel_sequential_layer.lstm_custom.layers.1.h2h.weight"):
+        if name not in moved:                       # only through C's
+            raise AssertionError(f"training: {name} did not move")
+    for key, net in state.frozen.items():
+        for n, p in net.named_parameters():
+            if not torch.equal(p, frozen0[key][n]):
+                raise AssertionError(f"frozen {key}: {n} changed")
+        stats = [n for n, t in net.state_dict().items()
+                 if n.endswith("running_mean")
+                 and not torch.equal(t, frozen0[key][n])]
+        print(f"  frozen {key}: parameters unchanged bit for bit, "
+              f"{len(stats)} running means moved")
+        if not stats:
+            raise AssertionError(f"frozen {key}: running stats did not move")
+    backward = recompute_ms(torch, card)
+    profile_train_step(torch, task, state, batches[0], card)
+    del state, task, batches
+    torch.cuda.empty_cache()
+
+    # ---- f32, batch 2: the card's step against the CPU's
+    cfg32 = Config.from_preset("egotap_unrealego", use_amp=False,
+                               batch_size=2)
+    batch = train_inputs(torch, torch.Generator(device="cuda").manual_seed(22),
+                         2)
+    readings = {}
+    for dev in ("cuda", "cpu"):
+        task = LifterTask(cfg32, device=dev)
+        st = task.init_state(seed=1, iters_per_epoch=TRAIN_ITERS_PER_EPOCH)
+        t0 = time.perf_counter()
+        readings[dev] = task.gradients(
+            st, {k: v.to(dev) for k, v in batch.items()})
+        print(f"  f32 step on the {dev}: {time.perf_counter() - t0:.2f} s")
+        if dev == "cuda":
+            real = vit.multihead_attention_packed
+            # faulty control: B's output cut from the graph, so nothing
+            # reaches q, k, v or what lies before them through attention
+            vit.multihead_attention_packed = \
+                lambda *a: real(*a).detach()
+            try:
+                st = task.init_state(seed=1,
+                                     iters_per_epoch=TRAIN_ITERS_PER_EPOCH)
+                readings["control"] = task.gradients(
+                    st, {k: v.to(dev) for k, v in batch.items()})
+            finally:
+                vit.multihead_attention_packed = real
+        del task, st
+    ref_loss, ref_grad = readings["cpu"]
+    ref = flat_grad(torch, ref_grad, ref_grad)
+    gaps = {}
+    for label in ("cuda", "control"):
+        loss, grad = readings[label]
+        gap = max(loss_gap(k, float(loss[k]), float(ref_loss[k]))
+                  for k in ref_loss)
+        rel = float((flat_grad(torch, grad, ref_grad) - ref).norm()
+                    / ref.norm())
+        gaps[label] = rel
+        values = {k: float(v) for k, v in loss.items()}
+        refs = {k: float(v) for k, v in ref_loss.items()}
+        print(f"  f32 {label} vs CPU: losses {values} vs {refs}, loss gap "
+              f"{gap:.3e} (rtol {TRAIN_LOSS_RTOL:.0e}); gradient rel-L2 "
+              f"{rel:.3e} (tol {TRAIN_GRAD_TOL:.0e})")
+        if label == "cuda" and (gap > TRAIN_LOSS_RTOL or rel > TRAIN_GRAD_TOL):
+            raise AssertionError("the f32 training step on the card and the "
+                                 "CPU disagree")
+    if not gaps["control"] > 10 * TRAIN_GRAD_TOL:
+        raise AssertionError("the gradient check did not reject B's "
+                             "backward dropped")
+    print(f"  control (B's output detached) rejected: rel-L2 "
+          f"{gaps['control']:.3e} > 10 x {TRAIN_GRAD_TOL:.0e}")
+    torch.cuda.empty_cache()
+    return {"counts": counts, "backward": backward}
+
+
+def numpy_metrics(pred, gt):
+    """mpjpe / pa_mpjpe in mm, float64 numpy: norms, and an SVD Procrustes
+    with the reflection fix."""
+    import numpy as np
+    pred, gt = pred.astype(np.float64), gt.astype(np.float64)
+    mu1, mu2 = pred.mean(1, keepdims=True), gt.mean(1, keepdims=True)
+    x1, x2 = pred - mu1, gt - mu2
+    k = np.einsum("bji,bjk->bik", x1, x2)
+    u, _, vh = np.linalg.svd(k)
+    v = vh.transpose(0, 2, 1)
+    z = np.tile(np.eye(3), (len(k), 1, 1))
+    z[:, -1, -1] = np.sign(np.linalg.det(u @ vh))
+    r = v @ z @ u.transpose(0, 2, 1)
+    scale = np.einsum("bij,bji->b", r, k) / (x1 ** 2).sum((1, 2))
+    aligned = scale[:, None, None] * x1 @ r.transpose(0, 2, 1) + mu2
+    err = lambda p: 10 * np.linalg.norm(gt - p, axis=-1).mean(-1)  # noqa
+    return {"mpjpe": err(pred), "pa_mpjpe": err(aligned)}
+
+
+def phase_eval(torch, card):
+    """The eval step of the serving configuration (bench.py:153-157):
+    bf16, int8 heatmap nets and lifter calibrated by `prepare_inference`
+    on 2 batches of rgb + 0.1 noise, batch 32."""
+    import numpy as np
+    from egotap_tpu_torch.core.config import Config
+    from egotap_tpu_torch.serving import Predictor
+    from egotap_tpu_torch.train.tasks import LifterTask
+
+    cfg = Config.from_preset("egotap_unrealego", int8_heatmap_inference=True,
+                             int8_lifter_inference=True)
+    task = LifterTask(cfg, device="cuda")
+    state = task.init_state(seed=2, iters_per_epoch=TRAIN_ITERS_PER_EPOCH)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    batch = train_inputs(torch, gen, cfg.batch_size)
+    rgb = batch["input_rgb"]
+    calib = [{"input_rgb": rgb + 0.1 * torch.randn(
+        rgb.shape, generator=gen, device="cuda")} for _ in range(2)]
+    t0 = time.perf_counter()
+    prepared = task.prepare_inference(state, calib)
+    torch.cuda.synchronize()
+    print(f"  prepare_inference (int8 twins, 2 calibration batches) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    task.eval_step(prepared, batch)                 # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    out = task.eval_step(prepared, batch)
+    counts = read_counts()
+    print(f"  launches in one eval step: {counts}")
+    if counts != PER_FORWARD:
+        raise AssertionError("the eval step must launch A, B and C as the "
+                             "serving forward does")
+    pred = Predictor(cfg, state.frozen["heatmap"].state_dict(),
+                     state.frozen["rot_heatmap"].state_dict(),
+                     state.lifter.state_dict(), bf16=True, device="cuda")
+    scales = 0
+    for net, twin in zip(pred.nets, prepared.inference.nets):
+        mods = dict(net.named_modules())
+        for name, m in twin.named_modules():
+            if getattr(m, "a_scale", None) is not None:
+                mods[name].a_scale = m.a_scale.clone()
+                scales += 1
+    want = pred._forward(rgb)
+    same = torch.equal(out["pred_pose"], want)
+    print(f"  eval step pose vs a Predictor with the same weights and "
+          f"{scales} static scales: "
+          f"{'equal bit for bit' if same else 'DIFFERENT  FAIL'}")
+    if not same:
+        raise AssertionError("eval_step and Predictor forward differ")
+    ref = numpy_metrics(out["pred_pose"].cpu().numpy(),
+                        batch["gt_local_pose"].cpu().numpy())
+    for k in ("mpjpe", "pa_mpjpe"):
+        got = out["metrics"][k].cpu().numpy()
+        gap = float(np.abs(got - ref[k]).max() / np.abs(ref[k]).max())
+        print(f"  {k}: mean {got.mean():.4f} mm, vs float64 numpy "
+              f"{gap:.3e} relative (tol {EVAL_METRIC_RTOL:.0e})")
+        if not (np.isfinite(got).all() and gap <= EVAL_METRIC_RTOL):
+            raise AssertionError(f"eval {k} disagrees with float64 numpy")
+    ms = time_ms(torch, lambda: task.eval_step(prepared, batch), iters=10,
+                 warmup=1)
+    print(f"  eval step median {ms:.3f} ms over 10 steps of batch "
+          f"{cfg.batch_size} = {1e3 * cfg.batch_size / ms:.2f} pairs/s "
+          f"[{card}]")
+    del pred, prepared, state, task
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -836,6 +1183,14 @@ def main() -> int:
 
     print("phase 4: entry points off the Predictor's path")
     fused, unpacked = phase_entry_points(torch, card)
+
+    print("phase 5: stage-2 training step, full width, batch 32, bf16; "
+          "f32 card vs CPU at batch 2")
+    train = phase_train(torch, card)
+
+    print("phase 6: eval step with pose metrics, int8 serving "
+          "configuration, batch 32")
+    evaluation = phase_eval(torch, card)
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     # launches of each row: the int8 forward's (bf16 compute) for the bf16
     # rows, the f32 forward's for the f32 attention and PU chain rows, and
@@ -877,6 +1232,13 @@ def main() -> int:
         for extra in ("unfused_ms", "device_ms", "latency_floor_ms"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
+        # the training step (bf16) and the eval step run the bf16 kernels
+        if dt == torch.bfloat16:
+            kernels[-1]["train_step_launches"] = \
+                train["counts"][key] / TRAIN_STEPS
+            kernels[-1]["eval_step_launches"] = evaluation[key]
+        if (key, dt) in train["backward"]:
+            kernels[-1]["backward_ms"] = train["backward"][(key, dt)]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""egotap_tpu_torch — the EgoTAP serving forward in PyTorch for NVIDIA Hopper.
+"""egotap_tpu_torch — EgoTAP in PyTorch for NVIDIA Hopper: the serving
+forward and the stage-2 training and eval steps.
 
 A port of `egotap_tpu` (the JAX/Pallas package, which stays the
 reference) to PyTorch and hand-written CUDA kernels for one H100.
@@ -10,7 +11,8 @@ Module names mirror the JAX package (`models/vit.py` <->
 Kernels live in ``csrc/*.cu`` and are built with ``nvcc`` at first use
 (`ops/_build.py`). Each kernel wrapper runs its plain PyTorch version
 only for a CPU tensor; for a CUDA tensor it launches the kernel or
-raises. Entry points default to ``device="cuda"``.
+raises. Entry points (`serving.Predictor`, `train.tasks.LifterTask`)
+default to ``device="cuda"``.
 
 This package imports neither ``jax`` nor anything of ``egotap_tpu``.
 """

@@ -11,6 +11,12 @@ the ViT specials, the Encoder_Block alias keys, and zero tensors for the
 reference-only tensors its forward never reads (torchvision ``fc``, ViT
 ``cls_token`` and ``pooler``).
 
+`task_state_from_jax` carries a JAX `LifterTask` training state (the
+lifter, both frozen nets with their running statistics, the step and the
+optax Adam/AdamW moments) into the port's `train.state.TrainState`, each
+moment through the same layout mapping as its parameter, so that a run
+started in JAX continues in the port.
+
 `install_jax_scales` carries the static activation scales of a JAX
 ``qparams`` collection (``a_scale`` entries, `amax_to_qparams`) into the
 port's int8 modules, mapping each JAX module path to the port's
@@ -25,11 +31,15 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
+from egotap_tpu_torch.core.config import Config
 from egotap_tpu_torch.core.device import resolve_device
 from egotap_tpu_torch.models.heatmap_net import HeatmapUNet
 from egotap_tpu_torch.models.lifter import EgoTAPLifter
 from egotap_tpu_torch.models.resnet import RESNET_SPECS, feature_expansion
 from egotap_tpu_torch.models.vit import PATCH
+from egotap_tpu_torch.serving import build_nets
+from egotap_tpu_torch.train.optim import make_optimizer
+from egotap_tpu_torch.train.state import TrainState
 
 
 class _Writer:
@@ -200,6 +210,52 @@ def lifter_from_jax(variables: Dict[str, Any], num_vit_layers: int = 3, *,
     net = EgoTAPLifter(vit_layers=num_vit_layers, **lifter_kwargs)
     net.load_state_dict(sd, strict=True)
     return net.eval().to(dev)
+
+
+def _optax_states(opt_state):
+    """Every NamedTuple state inside an optax chain's nested tuples."""
+    if hasattr(opt_state, "_fields"):
+        yield opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            yield from _optax_states(sub)
+
+
+def task_state_from_jax(jax_state: Any, cfg: Config, iters_per_epoch: int,
+                        *, device="cuda") -> TrainState:
+    """The port's `TrainState` holding a JAX `LifterTask` state: lifter
+    params and batch_stats, the frozen ``heatmap`` / ``rot_heatmap`` nets
+    with their running statistics, ``step``, and the optax state's
+    ``count`` and Adam/AdamW moments ``mu`` / ``nu`` (each mapped like its
+    parameter). The optimizer is `make_optimizer(cfg, iters_per_epoch)`,
+    as JAX's `LifterTask.init_state` builds it."""
+    dev = resolve_device(device)
+    pos_net, rot_net, lifter = build_nets(cfg)
+    for net, key in ((pos_net, "heatmap"), (rot_net, "rot_heatmap")):
+        net.load_state_dict(heatmap_net_state_dict(
+            jax_state.frozen[key], cfg.model_name), strict=True)
+    stats = jax_state.batch_stats
+    lifter.load_state_dict(lifter_state_dict(
+        {"params": jax_state.params, "batch_stats": stats},
+        num_pu_layers=cfg.n_skel_layers), strict=True)
+    state = TrainState.create(
+        lifter, {"heatmap": pos_net, "rot_heatmap": rot_net},
+        make_optimizer(cfg, iters_per_epoch), dev,
+        step=int(np.asarray(jax_state.step)))
+    opt = state.opt
+    for sub in _optax_states(jax_state.opt_state):
+        if "count" in sub._fields:
+            opt.count = int(np.asarray(sub.count))
+        if "mu" in sub._fields:
+            for name in ("mu", "nu"):
+                sd = lifter_state_dict({"params": getattr(sub, name),
+                                        "batch_stats": stats},
+                                       num_pu_layers=cfg.n_skel_layers)
+                moments = getattr(opt, name)
+                for key in moments:
+                    moments[key] = sd[key].to(dev)
+            break
+    return state
 
 
 # JAX ViTBlock submodule -> the port's (HF) name inside encoder.layer.{i}

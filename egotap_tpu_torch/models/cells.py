@@ -17,8 +17,9 @@ Cell math, gate order [forget, in, cell, out]:
 Everything that depends only on (x, bridge) is computed up front as
 batched matmuls over all joints (cells.py:106-113); the recurrence is
 `ops.pu_kernel.pu_chain_fused` (kernel C on the card, its plain loop on
-the CPU). Keys: ``layers.{i}.{x2f,x2h,b2h,h2h}`` like the reference's
-``PropagationUnit``.
+the CPU), differentiable on both: gradients reach the Linear parameters
+through the transposed views passed to it. Keys:
+``layers.{i}.{x2f,x2h,b2h,h2h}`` like the reference's ``PropagationUnit``.
 """
 
 from __future__ import annotations

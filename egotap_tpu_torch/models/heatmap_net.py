@@ -9,7 +9,10 @@ Counterpart of `egotap_tpu/models/heatmap_net.py:HeatmapUNet`
     a final 1x1 conv to ``num_output_maps * views`` channels;
   * the odd 258-channel width of the layer3 skip conv is kept;
   * ``quant``: int8 inference convs throughout (`ops/quant.py`, the JAX
-    ``quant`` field), the final 1x1 conv a `QConv` with a bias.
+    ``quant`` field), the final 1x1 conv a `QConv` with a bias;
+  * training mode: the encoder's BatchNorm takes per-view batch
+    statistics (``bn_views = views``: the fold puts view v of sample b at
+    row b*V + v, `egotap_tpu/models/heatmap_net.py:64-68`).
 
 Layout: NHWC. Keys follow the reference checkpoint: the ResNet under
 ``backbone.backbone.backbone.*``, re-registered (same tensors) under
@@ -39,9 +42,9 @@ class _EncoderBlock(nn.Module):
     """The reference's Encoder_Block registrations (net_architecture.py:
     53-73): the trunk as ``backbone`` plus aliases of its stages."""
 
-    def __init__(self, model_name: str, quant: bool):
+    def __init__(self, model_name: str, quant: bool, views: int):
         super().__init__()
-        trunk = ResNetEncoder(model_name, quant)
+        trunk = ResNetEncoder(model_name, quant, bn_views=views)
         self.backbone = trunk
         self.layer0 = nn.Sequential(trunk.conv1, trunk.bn1, nn.ReLU())
         self.layer1 = nn.Sequential(nn.MaxPool2d(3, 2, 1), trunk.layer1)
@@ -53,9 +56,9 @@ class _EncoderBlock(nn.Module):
 
 
 class _SharedBackbone(nn.Module):
-    def __init__(self, model_name: str, quant: bool):
+    def __init__(self, model_name: str, quant: bool, views: int):
         super().__init__()
-        self.backbone = _EncoderBlock(model_name, quant)
+        self.backbone = _EncoderBlock(model_name, quant, views)
 
     def forward(self, x: torch.Tensor):
         return self.backbone(x)
@@ -104,7 +107,7 @@ class HeatmapUNet(nn.Module):
         super().__init__()
         self.views = views
         fs = feature_expansion(model_name) * views
-        self.backbone = _SharedBackbone(model_name, quant)
+        self.backbone = _SharedBackbone(model_name, quant, views)
         self.after_backbone = _Decoder(num_output_maps, fs, views, quant)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:

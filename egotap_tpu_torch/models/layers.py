@@ -1,4 +1,4 @@
-"""Shared layers, NHWC, eval-mode semantics of the reference's factories.
+"""Shared layers, NHWC, with the semantics of the reference's factories.
 
 Counterpart of `egotap_tpu/models/layers.py` (reference
 model/network_utils.py:91-148):
@@ -13,9 +13,14 @@ variables carried across by `compat.from_jax` strict-load into them.
 Precision follows the JAX modules: matmuls and convolutions run in the
 input's dtype (weights cast to it), BatchNorm and LayerNorm compute in
 f32 and cast back. With ``quant`` the conv is a `QConv` and the Linear a
-`QDense` (int8 inference, `ops/quant.py`), with the same keys. Only
-eval-mode BatchNorm is ported; training BN (per-view statistics, unbiased
-running variance) belongs to the training slice.
+`QDense` (int8 inference, `ops/quant.py`), with the same keys.
+
+BatchNorm follows the module's ``training`` flag, as torch's does:
+`batch_norm_eval` normalises with the running statistics,
+`batch_norm_train` with the batch's and updates the running ones
+(`egotap_tpu/models/layers.py:TorchBatchNorm`). int8 modules are
+inference-only and ignore the flag, as the JAX package's int8 twins
+run only with ``train=False``.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from torch import nn
 from egotap_tpu_torch.ops.quant import QConv, QDense
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1          # torch momentum (flax decay 0.9)
 LEAKY_SLOPE = 0.2
 
 
@@ -62,6 +68,47 @@ def batch_norm_eval(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm
     return y.to(x.dtype)
 
 
+def batch_norm_train(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm,
+                     groups: int = 1) -> torch.Tensor:
+    """Train-mode BatchNorm over the last axis, in f32, cast back, with
+    the semantics of `egotap_tpu/models/layers.py:TorchBatchNorm`:
+    batch statistics in f32 (the variance in two passes), normalisation
+    with the biased variance, running statistics updated with momentum
+    0.1 and the unbiased variance (n / (n - 1), n the rows of a group
+    times the spatial positions).
+
+    ``groups`` G: row i of the leading axis belongs to group i % G (the
+    fold of a (B, G, ...) tensor into (B*G, ...)); each group is
+    normalised by its own statistics and the running statistics take G
+    sequential updates in group order, as the reference's one encoder
+    call per stereo view does. Differentiable through the batch
+    statistics; the running statistics are updated in place."""
+    feat = x.shape[-1]
+    xg = x.float().reshape((-1, groups) + tuple(x.shape[1:]))
+    axes = (0,) + tuple(range(2, xg.dim() - 1))
+    shape = (1, groups) + (1,) * (xg.dim() - 3) + (feat,)
+    mean = xg.mean(dim=axes)                                   # (G, C)
+    centred = xg - mean.reshape(shape)
+    var = centred.square().mean(dim=axes)
+    with torch.no_grad():
+        n = x.numel() // (feat * groups)
+        unbiased = var * (n / max(n - 1, 1))
+        rm, rv = bn.running_mean, bn.running_var
+        for g in range(groups):                  # sequential, view order
+            rm.copy_((1 - BN_MOMENTUM) * rm + BN_MOMENTUM * mean[g])
+            rv.copy_((1 - BN_MOMENTUM) * rv + BN_MOMENTUM * unbiased[g])
+        bn.num_batches_tracked += groups
+    inv = torch.rsqrt(var + BN_EPS) * bn.weight.float()
+    y = centred * inv.reshape(shape) + bn.bias.float()
+    return y.reshape(x.shape).to(x.dtype)
+
+
+def batch_norm(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm,
+               train: bool, groups: int = 1) -> torch.Tensor:
+    """`batch_norm_train` when ``train``, else `batch_norm_eval`."""
+    return batch_norm_train(x, bn, groups) if train else batch_norm_eval(x, bn)
+
+
 def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
     """LayerNorm in f32, cast back to x's dtype (flax LayerNorm with a
     bf16 ``dtype`` computes its statistics and affine in f32)."""
@@ -87,7 +134,8 @@ class ConvReLU(nn.Sequential):
 
 
 class FCBlock(nn.Module):
-    """Linear + BatchNorm1d + LeakyReLU(0.2) on (rows, features)."""
+    """Linear + BatchNorm1d + LeakyReLU(0.2) on (rows, features); in
+    training mode the BatchNorm takes the statistics of the rows."""
 
     def __init__(self, in_features: int, features: int, quant: bool = False):
         super().__init__()
@@ -95,8 +143,10 @@ class FCBlock(nn.Module):
         self.bn = nn.BatchNorm1d(features, eps=BN_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.fc(x) if isinstance(self.fc, QDense) else linear(x, self.fc)
-        return leaky_relu(batch_norm_eval(y, self.bn))
+        if isinstance(self.fc, QDense):
+            return leaky_relu(batch_norm_eval(self.fc(x), self.bn))
+        return leaky_relu(batch_norm(linear(x, self.fc), self.bn,
+                                     self.training))
 
 
 class MLPDecoder(nn.Module):

@@ -20,6 +20,12 @@ no static scale, which stays a float conv in the compute dtype
 ``fused_layer1`` runs the whole of layer1 as kernel D
 (`ops/fused_layer1.py`, per-image scales). Bottleneck nets (resnet50/101)
 and the space-to-depth stem are not ported.
+
+Training mode (the frozen stage-1 nets of the stage-2 training step):
+BatchNorm takes batch statistics, per view with ``bn_views`` V (row i of
+the folded batch is view i % V, `models/layers.py:batch_norm_train`).
+The int8 encoder is inference-only and ignores the flag, as in JAX
+(`egotap_tpu/models/resnet.py:76`).
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from egotap_tpu_torch.models.layers import BN_EPS, batch_norm_eval, conv_nhwc
+from egotap_tpu_torch.models.layers import BN_EPS, batch_norm, conv_nhwc
 from egotap_tpu_torch.ops.fused_layer1 import (fold_bn, fused_layer1_int8,
                                                pack_blocks)
 from egotap_tpu_torch.ops.quant import (Calibrated, WeightCache,
@@ -72,9 +78,10 @@ def _conv(cin: int, cout: int, kernel: int, stride: int,
 
 class BasicBlock(nn.Module):
     def __init__(self, cin: int, features: int, stride: int = 1,
-                 quant: bool = False):
+                 quant: bool = False, bn_views: int = 1):
         super().__init__()
         self.quant = quant
+        self.bn_views = bn_views
         self.conv1 = _conv(cin, features, 3, stride, quant)
         self.bn1 = nn.BatchNorm2d(features, eps=BN_EPS)
         self.conv2 = _conv(features, features, 3, 1, quant)
@@ -125,12 +132,14 @@ class BasicBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.quant:
             return self._folded_inference(x)
-        out = torch.relu(batch_norm_eval(conv_nhwc(x, self.conv1), self.bn1))
-        out = batch_norm_eval(conv_nhwc(out, self.conv2), self.bn2)
+
+        def bn(y, mod):
+            return batch_norm(y, mod, self.training, self.bn_views)
+        out = torch.relu(bn(conv_nhwc(x, self.conv1), self.bn1))
+        out = bn(conv_nhwc(out, self.conv2), self.bn2)
         identity = x
         if self.downsample is not None:
-            identity = batch_norm_eval(conv_nhwc(x, self.downsample[0]),
-                                       self.downsample[1])
+            identity = bn(conv_nhwc(x, self.downsample[0]), self.downsample[1])
         return torch.relu(out + identity)
 
 
@@ -149,14 +158,16 @@ class ResNetEncoder(WeightCache, nn.Module):
     reference's Encoder_Block.forward (net_architecture.py:75-85).
 
     quant: int8 inference blocks; fused_layer1 (with quant): layer1 as
-    kernel D, with the same parameters."""
+    kernel D, with the same parameters; bn_views: the views interleaved
+    in the batch, for per-view training statistics."""
 
     cached = ("layer1_wq", "layer1_ws", "layer1_bias")
 
     def __init__(self, model_name: str = "resnet18", quant: bool = False,
-                 fused_layer1: bool = False):
+                 fused_layer1: bool = False, bn_views: int = 1):
         super().__init__()
         self.quant = quant
+        self.bn_views = bn_views
         self.fused_layer1 = fused_layer1
         self._init_cache()
         kind, depths = RESNET_SPECS[model_name]
@@ -171,7 +182,7 @@ class ResNetEncoder(WeightCache, nn.Module):
             blocks = []
             for bi in range(depth):
                 stride = 2 if (li > 1 and bi == 0) else 1
-                blocks.append(BasicBlock(cin, width, stride, quant))
+                blocks.append(BasicBlock(cin, width, stride, quant, bn_views))
                 cin = width
             setattr(self, f"layer{li}", nn.Sequential(*blocks))
         # torchvision's classification head: in the checkpoints, never run
@@ -193,8 +204,9 @@ class ResNetEncoder(WeightCache, nn.Module):
                                  self.layer1_ws, self.layer1_bias)
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        layer0 = torch.relu(batch_norm_eval(conv_nhwc(x, self.conv1),
-                                            self.bn1))
+        layer0 = torch.relu(batch_norm(
+            conv_nhwc(x, self.conv1), self.bn1,
+            self.training and not self.quant, self.bn_views))
         out = max_pool_nhwc(layer0)
         feats = []
         for li in range(1, 5):

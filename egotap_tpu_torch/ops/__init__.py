@@ -7,9 +7,12 @@ to a few elements; the rms error catches a small fault spread over all
 of them (a skipped bf16 operand rounding), which one-ulp flips of the
 final bf16 rounding would hide from the max.
 
-The kernels have no backward yet: on the card a wrapper refuses inputs
-that need a gradient (`refuse_grad`) instead of returning an output cut
-off from autograd. On the CPU the plain versions differentiate.
+Gradients: on the card the wrappers of kernels B and C are the forward
+of a `torch.autograd.Function` whose backward is autograd over the
+plain version, recomputed from the saved inputs (`plain_vjp`). Kernels A
+and D have no backward yet: their wrappers refuse inputs that need a
+gradient (`refuse_grad`) instead of returning an output cut off from
+autograd. On the CPU the plain versions differentiate.
 """
 
 from __future__ import annotations
@@ -25,6 +28,25 @@ def refuse_grad(what: str, *tensors: torch.Tensor) -> None:
         raise RuntimeError(
             f"{what} kernel has no backward: call it under torch.no_grad() "
             "or with inputs that do not require grad")
+
+
+def plain_vjp(plain, saved, need, grad, label):
+    """The vector-Jacobian product of ``plain`` at the tensors ``saved``
+    with the output gradient ``grad``: ``plain`` is recomputed under
+    autograd from detached copies. One gradient per saved tensor, None
+    where ``need`` (``ctx.needs_input_grad``) is false: the backward of
+    a kernel whose plain version is ``plain``. The work runs in a
+    profiler range named ``label``."""
+    need = list(need[:len(saved)])
+    if not any(need):
+        return (None,) * len(saved)
+    with torch.profiler.record_function(label), torch.enable_grad():
+        leaves = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+        out = plain(*leaves)
+        grads = torch.autograd.grad(
+            out, [x for x, n in zip(leaves, need) if n], grad)
+    it = iter(grads)
+    return tuple(next(it) if n else None for n in need)
 
 
 def kernel_errors(got: torch.Tensor, ref: torch.Tensor):

@@ -9,6 +9,11 @@ flattened to ``(B*H, S, Dh)`` is the packed one with a single head.
 
 Both wrappers run kernel B (``csrc/attention.cu``) for a CUDA tensor and
 `attention_packed_plain` for a CPU tensor; each counts its own launches.
+On the card the kernel is the forward of a `torch.autograd.Function`
+whose backward recomputes `attention_packed_plain` from the q, k and v
+the kernel saw (in their dtype) and returns its vector-Jacobian product:
+the counterpart of JAX's ``custom_vjp`` (`_fused_attention_packed_bwd`,
+`_fused_attention_bwd`), which recomputes its jnp formula.
 Neither kernel keeps a score tile, so both take any S. The bfloat16
 kernel runs both products on ``wgmma`` with the scores in registers and
 two passes over the keys (p is normalised before it is rounded to bf16);
@@ -31,9 +36,10 @@ import re
 
 import torch
 
-from egotap_tpu_torch.ops import _build, refuse_grad
+from egotap_tpu_torch.ops import _build, plain_vjp
 
 HEAD_DIM = 128            # the kernel's head width
+BACKWARD_LABEL = "kernel B backward (plain recompute)"   # profiler range
 
 
 def attention_packed_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -77,7 +83,6 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("q, k, v must share shape and dtype")
     if q.dtype not in _DTYPE_CODE:
         raise NotImplementedError(f"attention kernel: dtype {q.dtype}")
-    refuse_grad("attention", q, k, v)
     if d != heads * HEAD_DIM or s < 1 or b > 65535:
         raise NotImplementedError(
             f"attention kernel covers head_dim {HEAD_DIM}, S >= 1 and at "
@@ -94,12 +99,29 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+class _KernelB(torch.autograd.Function):
+    """Kernel B forward; backward: autograd over the plain version,
+    recomputed from the saved q, k, v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, heads):
+        ctx.save_for_backward(q, k, v)
+        ctx.heads = heads
+        return _launch(q, k, v, heads)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (*plain_vjp(lambda q, k, v: attention_packed_plain(
+            q, k, v, ctx.heads), ctx.saved_tensors, ctx.needs_input_grad,
+            grad, BACKWARD_LABEL), None)
+
+
 def multihead_attention_packed(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, heads: int) -> torch.Tensor:
     """(B, S, H*Dh) q/k/v (projection layout) -> (B, S, H*Dh) context."""
     if q.device.type == "cpu":
         return attention_packed_plain(q, k, v, heads)
-    out = _launch(q, k, v, heads)
+    out = _KernelB.apply(q, k, v, heads)
     multihead_attention_packed.launches += 1
     return out
 
@@ -118,13 +140,13 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     partial query and key tile, so it takes any S, also where JAX's Pallas
     rule (``S % 8 == 0 and Dh % 128 == 0``) falls back to jnp; a card
     tensor it does not cover (Dh other than 128) raises. A CPU tensor
-    takes the plain formula."""
+    takes the plain formula. Gradients as for the packed wrapper."""
     b, h, s, d = q.shape
     flat = [x.reshape(b * h, s, d) for x in (q, k, v)]
     if q.device.type == "cpu":
         out = attention_packed_plain(*flat, heads=1)
     else:
-        out = _launch(*flat, heads=1)
+        out = _KernelB.apply(*flat, 1)
         multihead_attention.launches += 1
     return out.reshape(b, h, s, d)
 

@@ -14,6 +14,13 @@ weights in shared memory for the whole walk, read once from their
 (out, in) rows (`weight_rows`), and meets the grid at one barrier per
 joint; `barrier_walk` runs those barriers alone (its latency floor),
 `kernel_resources` reports what a block takes of an SM.
+
+On the card the kernel is the forward of a `torch.autograd.Function`
+whose backward recomputes `pu_chain_plain` from the saved inputs and
+returns its vector-Jacobian product, so gradients reach ``fh``,
+``gates_pre``, the layer-0 h2h kernel and every weight and bias of the
+top cell (through the transposed Linear views the lifter passes). JAX
+differentiates its `lax.scan` of the same chain (`models/cells.py`).
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from egotap_tpu_torch.ops import _build, refuse_grad
+from egotap_tpu_torch.ops import _build, plain_vjp
 
 
 def _cell_update(gates: torch.Tensor, c: torch.Tensor):
@@ -70,6 +77,7 @@ def pu_chain_plain(fh: torch.Tensor, gates_pre: torch.Tensor,
 TOL = {torch.float32: (2e-5, 2e-6), torch.bfloat16: (5e-4, 1e-4)}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+BACKWARD_LABEL = "kernel C backward (plain recompute)"   # profiler range
 _GATES = (4, 1, 4, 4)       # rows a unit has in Wh2h, Wx2f1, Wx2h1, Wh2h1
 
 
@@ -135,6 +143,42 @@ def _launch(fh, gp, rows, biases, b, J, hidden, units, wdt, barrier_only):
     return out
 
 
+_CELL1 = (("x2f", "kernel"), ("x2f", "bias"), ("x2h", "kernel"),
+          ("x2h", "bias"), ("h2h", "kernel"), ("h2h", "bias"))
+
+
+def _plain_flat(fh, gates_pre, w0, *cell1):
+    """`pu_chain_plain` with the top cell's tensors in `_CELL1` order."""
+    nested: Dict[str, Dict[str, torch.Tensor]] = {}
+    for (n, leaf), t in zip(_CELL1, cell1):
+        nested.setdefault(n, {})[leaf] = t
+    return pu_chain_plain(fh, gates_pre, w0, nested)
+
+
+class _KernelC(torch.autograd.Function):
+    """Kernel C forward; backward: autograd over the plain version,
+    recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, units, fh, gates_pre, w0, *cell1):
+        ctx.save_for_backward(fh, gates_pre, w0, *cell1)
+        b, J, H = fh.shape
+
+        def f32(x):
+            return x.float().contiguous()
+        kernels = [w0, cell1[0], cell1[2], cell1[4]]
+        biases = [f32(x) for x in cell1[1::2]]
+        return _launch(f32(fh), f32(gates_pre),
+                       [weight_rows(w) for w in kernels], biases, b, J, H,
+                       units, w0.dtype, barrier_only=False)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (None, *plain_vjp(_plain_flat, ctx.saved_tensors,
+                                 ctx.needs_input_grad[1:], grad,
+                                 BACKWARD_LABEL))
+
+
 def pu_chain_fused(fh: torch.Tensor, gates_pre: torch.Tensor,
                    cell0_h2h_kernel: torch.Tensor,
                    cell1: Dict[str, Dict[str, torch.Tensor]]) -> torch.Tensor:
@@ -143,16 +187,13 @@ def pu_chain_fused(fh: torch.Tensor, gates_pre: torch.Tensor,
     fh: (B, J, H) layer-0 h-forget gates; gates_pre: (B, J, 4H) layer-0
     preactivations incl. the h2h bias; cell0_h2h_kernel: (H, 4H); cell1:
     ``{"x2f"|"x2h"|"h2h": {"kernel": (H, n), "bias": (n,)}}`` of the
-    bridge-less top cell. Returns (B, J, H) top-layer h per step, f32.
-    On the card it needs inputs that do not require grad, or grad mode
-    off (the kernel has no backward yet)."""
+    bridge-less top cell. Returns (B, J, H) top-layer h per step, f32,
+    differentiable in every tensor input."""
     if fh.device.type == "cpu":
         return pu_chain_plain(fh, gates_pre, cell0_h2h_kernel, cell1)
     wdt = cell0_h2h_kernel.dtype
     if wdt not in _DTYPE_CODE:
         raise NotImplementedError(f"PU chain kernel: weight dtype {wdt}")
-    refuse_grad("PU chain", fh, gates_pre, cell0_h2h_kernel,
-                *(t for c in cell1.values() for t in c.values()))
     b, J, H = fh.shape
     if gates_pre.shape != (b, J, 4 * H):
         raise ValueError(f"gates_pre {tuple(gates_pre.shape)} != {(b, J, 4 * H)}")
@@ -165,12 +206,8 @@ def pu_chain_fused(fh: torch.Tensor, gates_pre: torch.Tensor,
     if b < 1 or J < 1:
         raise NotImplementedError(f"PU chain kernel: B={b}, J={J}")
     units = _check_fits(H, wdt, fh.device)
-
-    def f32(x):
-        return x.float().contiguous()
-    biases = [f32(cell1[n]["bias"]) for n in ("x2f", "x2h", "h2h")]
-    out = _launch(f32(fh), f32(gates_pre), [weight_rows(w) for w in kernels],
-                  biases, b, J, H, units, wdt, barrier_only=False)
+    out = _KernelC.apply(units, fh, gates_pre, cell0_h2h_kernel,
+                         *(cell1[n][leaf] for n, leaf in _CELL1))
     pu_chain_fused.launches += 1
     return out
 

@@ -88,6 +88,43 @@ def cast_matmul_weights(module: nn.Module, dtype: torch.dtype) -> None:
             m.to(dtype)
 
 
+def build_nets(cfg: Config, int8_heatmap: bool = False,
+               int8_lifter: bool = False):
+    """(pos_net, rot_net, lifter) of ``cfg``, in their constructors'
+    (training) mode with torch's default parameters."""
+    pos_net = HeatmapUNet(cfg.num_heatmap, cfg.model_name, cfg.views,
+                          quant=int8_heatmap)
+    rot_net = HeatmapUNet(cfg.num_rot_heatmap * cfg.limb_dim, cfg.model_name,
+                          cfg.views, quant=int8_heatmap)
+    lifter = EgoTAPLifter(
+        num_heatmap=cfg.num_heatmap, num_joints=cfg.num_joints_out,
+        num_rot_heatmap=cfg.num_rot_heatmap, views=cfg.views,
+        limb_dim=cfg.limb_dim, hidden_size=cfg.ae_hidden_size,
+        skel_layer=cfg.skel_layer, num_pu_layers=cfg.n_skel_layers,
+        use_global_offset=(cfg.joint_preset == "UnrealEgo"
+                           and cfg.estimate_head),
+        pu_semantics=cfg.pu_semantics, heatmap_size=cfg.heatmap_res,
+        quant=int8_lifter)
+    return pos_net, rot_net, lifter
+
+
+def heatmap_stack(pos_net: nn.Module, rot_net: nn.Module, rgb: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """Both stage-1 nets on rgb cast to ``dtype``, concatenated (the
+    stack the lifter reads, in ``dtype``)."""
+    x = rgb.to(dtype)
+    return torch.cat([pos_net(x), rot_net(x)], dim=-1)
+
+
+def pose_forward(nets, rgb: torch.Tensor, dtype: torch.dtype
+                 ) -> torch.Tensor:
+    """The serving forward of ``nets`` = (pos_net, rot_net, lifter) in
+    ``dtype``: (B, V, H, W, 3) rgb -> (B, J, 3) f32 pose. Shared by
+    `Predictor` and `train.tasks.LifterTask.eval_step`."""
+    pos_net, rot_net, lifter = nets
+    return lifter(heatmap_stack(pos_net, rot_net, rgb, dtype)).float()
+
+
 class Predictor:
     def __init__(self, cfg: Optional[Config] = None,
                  heatmap_state: Optional[StateDict] = None,
@@ -109,19 +146,8 @@ class Predictor:
         int8_lift = cfg.int8_lifter_inference if int8 is None else int8
         if self.device.type == "cuda":
             set_f32_numerics()
-        self.pos_net = HeatmapUNet(cfg.num_heatmap, cfg.model_name, cfg.views,
-                                   quant=int8_hm)
-        self.rot_net = HeatmapUNet(cfg.num_rot_heatmap * cfg.limb_dim,
-                                   cfg.model_name, cfg.views, quant=int8_hm)
-        self.lifter = EgoTAPLifter(
-            num_heatmap=cfg.num_heatmap, num_joints=cfg.num_joints_out,
-            num_rot_heatmap=cfg.num_rot_heatmap, views=cfg.views,
-            limb_dim=cfg.limb_dim, hidden_size=cfg.ae_hidden_size,
-            skel_layer=cfg.skel_layer, num_pu_layers=cfg.n_skel_layers,
-            use_global_offset=(cfg.joint_preset == "UnrealEgo"
-                               and cfg.estimate_head),
-            pu_semantics=cfg.pu_semantics, heatmap_size=cfg.heatmap_res,
-            quant=int8_lift)
+        self.pos_net, self.rot_net, self.lifter = build_nets(
+            cfg, int8_hm, int8_lift)
         gen = torch.Generator().manual_seed(seed)
         for net, state in ((self.pos_net, heatmap_state),
                            (self.rot_net, rot_heatmap_state),
@@ -167,12 +193,12 @@ class Predictor:
                    for net in self.nets for m in net.modules())
 
     def _heatmap_stack(self, rgb: torch.Tensor, dtype=None) -> torch.Tensor:
-        x = rgb.to(dtype or self.dtype)
-        return torch.cat([self.pos_net(x), self.rot_net(x)], dim=-1)
+        return heatmap_stack(self.pos_net, self.rot_net, rgb,
+                             dtype or self.dtype)
 
     @torch.no_grad()
     def _forward(self, rgb: torch.Tensor) -> torch.Tensor:
-        return self.lifter(self._heatmap_stack(rgb)).float()
+        return pose_forward(self.nets, rgb, self.dtype)
 
     def __call__(self, rgb) -> np.ndarray:
         """rgb: (B, views, H, W, 3) ImageNet-normalized float32 (numpy or

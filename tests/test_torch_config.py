@@ -54,3 +54,34 @@ def test_unknown_presets_raise():
         Config(joint_preset="Nope").derive()
     with pytest.raises(ValueError):
         get_skeleton("xR-Egopose")
+
+
+TRAINING = ("model", "use_gt_heatmap", "batch_size", "epoch_count", "niter",
+            "niter_decay", "optimizer_type", "lr_policy",
+            "lr_decay_iters_step", "lr", "weight_decay", "opt_eps",
+            "lambda_mpjpe", "lambda_cos_sim", "use_amp", "compute_dtype")
+
+
+def test_training_defaults_match_jax():
+    ours, ref = Config(), JaxConfig()
+    for name in TRAINING:
+        assert getattr(ours, name) == getattr(ref, name), name
+
+
+def test_stage2_preset_matches_jax():
+    """The port's egotap_unrealego preset is the JAX one less the keys the
+    port has no field for (logging, stage 1, checkpoint I/O, and the
+    always-on patched ViT lifter)."""
+    from egotap_tpu.core.config import PRESETS as JAX_PRESETS
+    from egotap_tpu_torch.core.config import PRESETS
+    ref = JAX_PRESETS["egotap_unrealego"]
+    ours = PRESETS["egotap_unrealego"]
+    assert set(ref) - set(ours) == {"experiment_name", "patched_heatmap_ae",
+                                    "init_ImageNet",
+                                    "path_to_trained_heatmap"}
+    assert ours == {k: ref[k] for k in ours}
+    cfg = Config.from_preset("egotap_unrealego", batch_size=4)
+    assert cfg.batch_size == 4 and cfg.optimizer_type == "AdamW"
+    assert cfg.num_joints_out == 16 and cfg.estimate_head
+    with pytest.raises(ValueError):
+        Config.from_preset("unrealego_heatmap_joint")

@@ -47,3 +47,18 @@ def test_entry_points_default_to_cuda(int8):
     from egotap_tpu_torch.serving import Predictor
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Predictor(int8=int8)
+
+
+@pytest.mark.parametrize("entry", ["LifterTask", "create_task"])
+def test_lifter_task_defaults_to_cuda(entry):
+    """The training task runs on the card unless the caller asks for the
+    CPU: with no card it raises, with device='cpu' it builds."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from egotap_tpu_torch.core.config import Config
+    from egotap_tpu_torch.train import tasks
+    cfg = Config.from_preset("egotap_unrealego")
+    make = getattr(tasks, entry)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make(cfg)
+    assert make(cfg, device="cpu").device.type == "cpu"

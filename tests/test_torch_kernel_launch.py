@@ -92,11 +92,12 @@ def _call(which):
 
 WRAPPERS = ["attention", "attention_unpacked", "upsample", "pu_chain",
             "fused_layer1"]
+DIFFERENTIABLE = ["attention", "attention_unpacked", "pu_chain"]
 
 
-@pytest.mark.parametrize("which", WRAPPERS)
+@pytest.mark.parametrize("which", ["upsample", "fused_layer1"])
 def test_refuses_inputs_that_require_grad(fake, which):
-    """The kernels have no backward: with grad mode on, an input that
+    """Kernels A and D have no backward: with grad mode on, an input that
     requires grad is refused before anything launches (an output with no
     grad_fn would drop the gradient without a word)."""
     wrapper, leaves, call = _call(which)
@@ -107,6 +108,29 @@ def test_refuses_inputs_that_require_grad(fake, which):
             call()
         leaf.requires_grad_(False)
     assert not fake.calls and wrapper.launches == before
+
+
+@pytest.mark.parametrize("which", DIFFERENTIABLE)
+def test_launches_under_grad(fake, which):
+    """Kernels B and C are the forward of an autograd function: with an
+    input that requires grad they launch once, counted once, and return
+    an output whose grad_fn is that function (its backward recomputes
+    the plain version, `tests/test_torch_grad.py`)."""
+    wrapper, leaves, call = _call(which)
+    for leaf in leaves:
+        before = wrapper.launches
+        fake.calls.clear()
+        leaf.requires_grad_(True)
+        out = call()
+        leaf.requires_grad_(False)
+        library = "attention" if which.startswith("attention") else which
+        assert [name for name, _ in fake.calls] == [library]
+        assert wrapper.launches == before + 1
+        fn = out.grad_fn                 # the function, or a view of it
+        names = {type(fn).__name__} | {type(f).__name__ for f, _ in
+                                       fn.next_functions if f is not None}
+        kernel = "_KernelC" if which == "pu_chain" else "_KernelB"
+        assert f"{kernel}Backward" in names
 
 
 @pytest.mark.parametrize("which", WRAPPERS)

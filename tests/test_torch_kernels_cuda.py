@@ -216,16 +216,74 @@ def test_pu_chain_refusals(gen):
     assert pu_kernel.pu_chain_fused.launches == before
 
 
-def test_pu_chain_refuses_grad(gen):
-    """With grad mode on, an input that requires grad is refused (the
-    kernel has no backward); under no_grad the same call launches."""
-    fh, gp, w0, cell1 = _pu_inputs(gen, 4, 3, 128, torch.bfloat16)
-    w0.requires_grad_(True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        pu_kernel.pu_chain_fused(fh, gp, w0, cell1)
-    with torch.no_grad():
-        got = pu_kernel.pu_chain_fused(fh, gp, w0, cell1)
-    assert got.grad_fn is None and torch.isfinite(got).all()
+def _vjp(fn, leaves, ct):
+    """fn's output and its gradients in ``leaves`` for the cotangent ct."""
+    leaves = [x.detach().requires_grad_(True) for x in leaves]
+    out = fn(*leaves)
+    return out, torch.autograd.grad(out, leaves, ct)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,j,h", [(32, 15, 512), (3, 4, 36)])
+def test_pu_chain_grad_matches_plain(gen, b, j, h, dtype):
+    """Kernel C's autograd function at the lifter's shape and at H = 36
+    (padded rows): the forward launches the kernel once, and the
+    gradients in fh, gates_pre and every weight and bias, the weights
+    passed as transposed views of (out, in) tensors as the lifter passes
+    its Linear weights, equal those of autograd over the plain version
+    bit for bit (the backward is that recompute)."""
+    dt = getattr(torch, dtype)
+    fh, gp, w0, cell1 = _pu_inputs(gen, b, j, h, dt)
+    leaves = [fh, gp, w0.t().contiguous()] + [
+        x for n in ("x2f", "x2h", "h2h")
+        for x in (cell1[n]["kernel"].t().contiguous(), cell1[n]["bias"])]
+    ct = torch.randn(b, j, h, generator=gen, device="cuda")
+
+    def call(fn):
+        def run(fh, gp, w0_rows, *c1):
+            cells = {n: {"kernel": c1[2 * i].t(), "bias": c1[2 * i + 1]}
+                     for i, n in enumerate(("x2f", "x2h", "h2h"))}
+            return fn(fh, gp, w0_rows.t(), cells)
+        return run
+    before = pu_kernel.pu_chain_fused.launches
+    got, grads = _vjp(call(pu_kernel.pu_chain_fused), leaves, ct)
+    assert pu_kernel.pu_chain_fused.launches == before + 1
+    ref, want = _vjp(call(pu_kernel.pu_chain_plain), leaves, ct)
+    _close(got, ref, pu_kernel.TOL[dt])
+    for g, w in zip(grads, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+        assert torch.isfinite(g).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["packed", "unpacked"])
+def test_attention_grad_matches_plain(gen, layout, dtype):
+    """Kernel B's autograd function at the Grid-ViT's shape: one launch
+    in the forward, and gradients in q, k and v equal to those of
+    autograd over the plain version bit for bit, recomputed from the
+    q, k, v the kernel saw (in their dtype)."""
+    dt = getattr(torch, dtype)
+    shape = (32, 576, 1024) if layout == "packed" else (32, 8, 576, 128)
+    leaves = [torch.randn(shape, generator=gen, device="cuda").to(dt)
+              for _ in range(3)]
+    ct = torch.randn(shape, generator=gen, device="cuda").to(dt)
+    if layout == "packed":
+        wrapper = att.multihead_attention_packed
+        kernel = lambda q, k, v: wrapper(q, k, v, 8)      # noqa: E731
+        plain = lambda q, k, v: att.attention_packed_plain(q, k, v, 8)  # noqa: E731
+    else:
+        wrapper = kernel = att.multihead_attention
+
+        def plain(q, k, v):
+            flat = [x.reshape(256, 576, 128) for x in (q, k, v)]
+            return att.attention_packed_plain(*flat, heads=1).reshape(shape)
+    before = wrapper.launches
+    got, grads = _vjp(kernel, leaves, ct)
+    assert wrapper.launches == before + 1
+    ref, want = _vjp(plain, leaves, ct)
+    _close(got, ref, att.TOL[dt])
+    for g, w in zip(grads, want):
+        assert g.dtype == dt and torch.equal(g, w)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
