@@ -63,9 +63,25 @@ Exits non-zero, printing no result, when there is no card. Phases:
    to a `Predictor` with the same weights and scales, mpjpe / pa_mpjpe
    within 1e-4 of float64 numpy (norms, SVD Procrustes with the
    reflection fix), the median time of 10 steps.
-7. One JSON line with every kernel's numbers (with each bf16 kernel's
-   launches per training and eval step, and B's and C's backward
-   recompute time a launch), then the result line.
+7. Stage-1 training at full width (`bench.py` train1: the
+   unrealego_heatmap_joint and unrealego_heatmap_limb presets, resnet18,
+   256 x 256 stereo, 64 x 64 maps, bf16 amp, stage-1 Adam, batch 16):
+   a raw batch drawn with numpy (joints out of view, a zero-length bone),
+   its targets rendered on the card by `make_device_preprocess` and held
+   to the CPU's; `HeatmapTask.train_step` 12 times on that fixed batch
+   from a seeded `init_state`: the median CUDA-event time of the last 10
+   and pairs/s, kernel A's 3 launches a step and its 3 backward
+   recomputes (profiler ranges), every trained parameter and running
+   statistic moved, the loss at steps 1 and 12 (finite, falling). For the
+   joint preset the f32 eval step of the trained state against the CPU's
+   (mse_heatmap); kernel A's backward recompute a launch by events; one
+   f32 step of batch 2 on the card against the CPU (losses, the UNet's
+   gradient by relative L2) and the same check rejecting A's output
+   detached from the graph.
+8. One JSON line with every kernel's numbers (with each bf16 kernel's
+   launches per training and eval step, A's per stage-1 step, and the
+   backward recompute time a launch of A (stage 1), B and C), then the
+   result line.
 """
 
 import json
@@ -955,7 +971,7 @@ def phase_train(torch, card):
     batches = [train_inputs(torch, gen, cfg.batch_size)
                for _ in range(TRAIN_STEPS)]
     lifter0 = {n: p.detach().clone()
-               for n, p in state.lifter.named_parameters()}
+               for n, p in state.net.named_parameters()}
     frozen0 = {k: {n: t.clone() for n, t in net.state_dict().items()}
                for k, net in state.frozen.items()}
     reset_counts()
@@ -982,7 +998,7 @@ def phase_train(torch, card):
     print(f"  training step median {ms:.3f} ms over the last {TIMED_STEPS} "
           f"of {TRAIN_STEPS} steps of batch {cfg.batch_size} = "
           f"{1e3 * cfg.batch_size / ms:.2f} pairs/s [{card}]")
-    moved = [n for n, p in state.lifter.named_parameters()
+    moved = [n for n, p in state.net.named_parameters()
              if not torch.equal(p, lifter0[n])]
     print(f"  lifter: {len(moved)} of {len(lifter0)} parameter tensors moved")
     for name in ("pos_heatmap_encoder.vit.encoder.layer.0.attention."
@@ -1113,7 +1129,7 @@ def phase_eval(torch, card):
                              "serving forward does")
     pred = Predictor(cfg, state.frozen["heatmap"].state_dict(),
                      state.frozen["rot_heatmap"].state_dict(),
-                     state.lifter.state_dict(), bf16=True, device="cuda")
+                     state.net.state_dict(), bf16=True, device="cuda")
     scales = 0
     for net, twin in zip(pred.nets, prepared.inference.nets):
         mods = dict(net.named_modules())
@@ -1145,6 +1161,246 @@ def phase_eval(torch, card):
     del pred, prepared, state, task
     torch.cuda.empty_cache()
     return counts
+
+
+# stage-1 training (bench.py:200-206, train1): both stage-1 presets at
+# their batch of 16, bf16 amp, stage-1 Adam, on targets rendered on the
+# card from a raw batch
+STAGE1_PRESETS = ("unrealego_heatmap_joint", "unrealego_heatmap_limb")
+# launches per stage-1 training step: the decoder's three calls of A
+# forward; A's backward recomputes the plain version (profiler range)
+PER_TRAIN1_STEP = {"upsample": 3, "attention": 0, "pu_chain": 0,
+                   "attention_unpacked": 0, "fused_layer1": 0}
+# the targets rendered on the card vs on the CPU: the same operations on
+# both, f32 rounding apart; relative where a value exceeds 1 (pixel
+# lengths reach about 90, where one ulp is 7.6e-6)
+TARGET_TOL = 1e-6
+EVAL_MSE_RTOL = 1e-4               # f32 eval step, card vs CPU
+
+
+def stage1_recompute_ms(torch, card):
+    """CUDA-event times of kernel A's backward recompute (`ops.plain_vjp`
+    over the plain version) at the stage-1 decoder's three bf16 calls,
+    batch 16; returns their mean, the time a launch."""
+    from egotap_tpu_torch.ops import plain_vjp, upsample
+    g = torch.Generator(device="cuda").manual_seed(32)
+    times = []
+    for n, h, w, c in ((16, 8, 8, 1024), (16, 16, 16, 1024),
+                       (16, 32, 32, 512)):
+        x = torch.randn(n, h, w, c, generator=g, device="cuda").bfloat16()
+        ct = torch.randn(n, 2 * h, 2 * w, c, generator=g,
+                         device="cuda").bfloat16()
+        times.append(time_ms(torch, lambda: plain_vjp(
+            upsample.upsample2x_plain, (x,), (True,), ct,
+            upsample.BACKWARD_LABEL), iters=10))
+    print(f"  kernel A backward recompute, bf16, at (16, 8, 8, 1024), "
+          f"(16, 16, 16, 1024), (16, 32, 32, 512): "
+          f"{', '.join(f'{t:.4f}' for t in times)} ms, "
+          f"{sum(times) / 3:.4f} ms a launch [{card}]")
+    return sum(times) / 3
+
+
+def profile_recompute(torch, step, card):
+    """Launches of A's backward recompute in one training step (its
+    profiler ranges) and the device time of their kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    from egotap_tpu_torch.breakdown import range_kernels_ms
+    from egotap_tpu_torch.ops import upsample
+    label = upsample.BACKWARD_LABEL
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    ranges = [e for e in prof.events() if e.name == label
+              and e.device_type != torch.autograd.DeviceType.CUDA]
+    ms = sum(range_kernels_ms(e, (label,)) for e in ranges)
+    print(f"  profiled step: {len(ranges)} backward recomputes of kernel A, "
+          f"their kernels {ms:.3f} ms on the device [{card}]")
+    return len(ranges)
+
+
+def check_targets(torch, feed, cpu_feed):
+    """Every output of the preprocess on the card against the CPU's."""
+    worst = 0.0
+    for k, ref in cpu_feed.items():
+        got = feed[k].cpu()
+        if got.shape != ref.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"target {k}: {tuple(got.shape)} on the "
+                                 f"card, {tuple(ref.shape)} on the CPU")
+        err = float(((got - ref).abs() / ref.abs().clamp_min(1)).max())
+        worst = max(worst, err)
+        if err > TARGET_TOL:
+            raise AssertionError(f"target {k}: card vs CPU {err:.3e}")
+    print(f"  targets rendered on the card vs the CPU: {len(cpu_feed)} "
+          f"tensors, max err {worst:.3e} (tol {TARGET_TOL:.0e})")
+    return worst
+
+
+def train1_run(torch, preset, card):
+    """TRAIN_STEPS bf16 stage-1 steps at full width on one fixed batch
+    rendered on the card; returns the state and what was counted."""
+    from egotap_tpu_torch.breakdown import raw_stage1_batch
+    from egotap_tpu_torch.core.config import Config
+    from egotap_tpu_torch.data.pipeline import make_device_preprocess
+    from egotap_tpu_torch.train.tasks import HeatmapTask
+    cfg = Config.from_preset(preset)
+    raw = raw_stage1_batch(cfg.batch_size, seed=30)
+    pre = make_device_preprocess(cfg)
+    feed = pre(raw)
+    targets = check_targets(torch, feed, pre({k: v.cpu()
+                                              for k, v in raw.items()}))
+    t0 = time.perf_counter()
+    task = HeatmapTask(cfg, device="cuda")
+    state = task.init_state(seed=0, iters_per_epoch=TRAIN_ITERS_PER_EPOCH)
+    torch.cuda.synchronize()
+    print(f"  {preset}: {cfg.model_name}, heatmap_type {cfg.heatmap_type}, "
+          f"{task.nh + task.nr * task.ld} maps a view, batch "
+          f"{cfg.batch_size}, use_amp {cfg.use_amp}, lr {cfg.lr}; state "
+          f"built in {time.perf_counter() - t0:.2f} s")
+    params0 = {n: p.detach().clone()
+               for n, p in state.net.named_parameters()}
+    stats0 = {n: t.clone() for n, t in state.net.state_dict().items()
+              if n.endswith(("running_mean", "running_var"))}
+    reset_counts()
+    times, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        state, loss = task.train_step(state, feed)
+        e.record()
+        times.append((s, e))
+        losses.append(loss)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"  launches over {TRAIN_STEPS} steps: {counts}")
+    for n, c in counts.items():
+        if c != TRAIN_STEPS * PER_TRAIN1_STEP[n]:
+            raise AssertionError(f"stage 1: {n} launched {c} times, expected "
+                                 f"{TRAIN_STEPS * PER_TRAIN1_STEP[n]}")
+    total = [sum(float(v) for v in loss.values()) for loss in losses]
+    print(f"  loss on the fixed batch: step 1 {total[0]:.6f}, step "
+          f"{TRAIN_STEPS} {total[-1]:.6f}; every step {total}")
+    if not (all(math.isfinite(t) for t in total) and total[-1] < total[0]):
+        raise AssertionError("stage 1: the loss did not fall")
+    ms = statistics.median(s.elapsed_time(e) for s, e in times[-TIMED_STEPS:])
+    print(f"  stage-1 step median {ms:.3f} ms over the last {TIMED_STEPS} of "
+          f"{TRAIN_STEPS} = {1e3 * cfg.batch_size / ms:.2f} pairs/s [{card}]")
+    unmoved = [n for n, p in state.net.named_parameters()
+               if ".fc." not in n and torch.equal(p, params0[n])]
+    stale = [n for n, t in stats0.items()
+             if torch.equal(state.net.state_dict()[n], t)]
+    print(f"  {len(params0) - 2 - len(unmoved)} of {len(params0) - 2} "
+          f"trained parameter tensors moved, {len(stats0) - len(stale)} of "
+          f"{len(stats0)} running statistics moved")
+    if unmoved or stale:
+        raise AssertionError(f"stage 1: unmoved {unmoved} {stale}")
+    recomputes = profile_recompute(
+        torch, lambda: task.train_step(state, feed), card)
+    if recomputes != 3:
+        raise AssertionError("stage 1: kernel A's backward must run once a "
+                             "decoder call")
+    return state, feed, {"counts": counts, "ms": ms, "targets": targets,
+                         "recomputes": recomputes}
+
+
+def eval_card_vs_cpu(torch, state, feed, preset):
+    """The f32 eval step (the input uncast, running statistics) of the
+    trained state on the card against the same on the CPU."""
+    import copy
+    from egotap_tpu_torch.core.config import Config
+    from egotap_tpu_torch.train.tasks import HeatmapTask
+    cfg = Config.from_preset(preset)
+    reset_counts()
+    out = HeatmapTask(cfg, device="cuda").eval_step(state, feed)
+    counts = read_counts()
+    cpu_state = copy.copy(state)
+    cpu_state.net = copy.deepcopy(state.net).cpu()
+    ref = HeatmapTask(cfg, device="cpu").eval_step(
+        cpu_state, {k: v.cpu() for k, v in feed.items()})
+    got, want = (o["metrics"]["mse_heatmap"].cpu() for o in (out, ref))
+    gap = float(((got - want).abs() / want.abs()).max())
+    print(f"  f32 eval step, batch {got.shape[0]}: kernel A launches "
+          f"{counts['upsample']}, mse_heatmap mean {float(got.mean()):.6f}, "
+          f"card vs CPU {gap:.3e} relative (tol {EVAL_MSE_RTOL:.0e})")
+    if counts["upsample"] != 3 or not gap <= EVAL_MSE_RTOL:
+        raise AssertionError("stage-1 eval step: card and CPU disagree")
+
+
+def train1_card_vs_cpu(torch, card):
+    """One f32 stage-1 step of batch 2 (joint preset, full width) on the
+    card against the CPU, and the same check rejecting kernel A's output
+    detached from the graph. The weights come from `serving.init_weights`
+    (biases and BatchNorm affine non-zero): with the reference init's zero
+    biases many ReLU inputs sit exactly on the kink."""
+    from egotap_tpu_torch.breakdown import raw_stage1_batch
+    from egotap_tpu_torch.core.config import Config
+    from egotap_tpu_torch.data.pipeline import make_device_preprocess
+    from egotap_tpu_torch.models import heatmap_net
+    from egotap_tpu_torch.serving import init_weights
+    from egotap_tpu_torch.train.tasks import HeatmapTask
+    cfg = Config.from_preset(STAGE1_PRESETS[0], use_amp=False, batch_size=2)
+    start = HeatmapTask(cfg, device="cpu").init_state(1, 1).net
+    init_weights(start, torch.Generator().manual_seed(2))
+    weights = start.state_dict()
+    raw = raw_stage1_batch(2, seed=31, device="cpu")
+    readings = {}
+    real = heatmap_net.upsample2x_align_corners
+    for label, dev in (("cuda", "cuda"), ("cpu", "cpu"),
+                       ("control", "cuda")):
+        task = HeatmapTask(cfg, device=dev)
+        state = task.init_state(seed=1, iters_per_epoch=1)
+        state.net.load_state_dict(weights)
+        feed = make_device_preprocess(cfg)({k: v.to(dev)
+                                            for k, v in raw.items()})
+        if label == "control":          # A's output cut from the graph
+            heatmap_net.upsample2x_align_corners = \
+                lambda x: real(x).detach()
+        t0 = time.perf_counter()
+        try:
+            readings[label] = task.gradients(state, feed)
+        finally:
+            heatmap_net.upsample2x_align_corners = real
+        print(f"  f32 stage-1 step ({label}): "
+              f"{time.perf_counter() - t0:.2f} s")
+    ref_loss, ref_grad = readings["cpu"]
+    ref = flat_grad(torch, ref_grad, ref_grad)
+    gaps = {}
+    for label in ("cuda", "control"):
+        loss, grad = readings[label]
+        gap = max(abs(float(loss[k]) - float(ref_loss[k]))
+                  / abs(float(ref_loss[k])) for k in ref_loss)
+        rel = float((flat_grad(torch, grad, ref_grad) - ref).norm()
+                    / ref.norm())
+        gaps[label] = rel
+        print(f"  f32 {label} vs CPU: loss gap {gap:.3e} (rtol "
+              f"{TRAIN_LOSS_RTOL:.0e}); UNet gradient rel-L2 {rel:.3e} (tol "
+              f"{TRAIN_GRAD_TOL:.0e})")
+        if label == "cuda" and (gap > TRAIN_LOSS_RTOL
+                                or rel > TRAIN_GRAD_TOL):
+            raise AssertionError("the f32 stage-1 step on the card and the "
+                                 "CPU disagree")
+    if not gaps["control"] > 10 * TRAIN_GRAD_TOL:
+        raise AssertionError("the gradient check did not reject kernel A's "
+                             "backward dropped")
+    print(f"  control (A's output detached) rejected: rel-L2 "
+          f"{gaps['control']:.3e} > 10 x {TRAIN_GRAD_TOL:.0e} [{card}]")
+
+
+def phase_train1(torch, card):
+    """Stage-1 training at full width: both presets (TRAIN_STEPS bf16
+    steps of batch 16 with the launch counters zeroed before them), the
+    f32 eval step and the f32 training step held to the CPU."""
+    runs = {}
+    for preset in STAGE1_PRESETS:
+        state, feed, runs[preset] = train1_run(torch, preset, card)
+        if preset == STAGE1_PRESETS[0]:
+            eval_card_vs_cpu(torch, state, feed, preset)
+        del state, feed
+        torch.cuda.empty_cache()
+    backward = stage1_recompute_ms(torch, card)
+    train1_card_vs_cpu(torch, card)
+    torch.cuda.empty_cache()
+    return {"counts": runs[STAGE1_PRESETS[0]]["counts"], "backward": backward}
 
 
 def main() -> int:
@@ -1191,6 +1447,11 @@ def main() -> int:
     print("phase 6: eval step with pose metrics, int8 serving "
           "configuration, batch 32")
     evaluation = phase_eval(torch, card)
+
+    print("phase 7: stage-1 training step, full width, batch 16, bf16, "
+          "both presets; targets, eval and an f32 step card vs CPU")
+    with torch.enable_grad():
+        stage1 = phase_train1(torch, card)
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     # launches of each row: the int8 forward's (bf16 compute) for the bf16
     # rows, the f32 forward's for the f32 attention and PU chain rows, and
@@ -1239,6 +1500,11 @@ def main() -> int:
             kernels[-1]["eval_step_launches"] = evaluation[key]
         if (key, dt) in train["backward"]:
             kernels[-1]["backward_ms"] = train["backward"][(key, dt)]
+        # stage 1 trains in bf16: A's launches a step and its backward
+        if (key, dt) == ("upsample", torch.bfloat16):
+            kernels[-1]["train1_step_launches"] = \
+                stage1["counts"][key] / TRAIN_STEPS
+            kernels[-1]["backward_ms"] = stage1["backward"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

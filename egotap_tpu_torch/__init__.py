@@ -1,5 +1,6 @@
 """egotap_tpu_torch — EgoTAP in PyTorch for NVIDIA Hopper: the serving
-forward and the stage-2 training and eval steps.
+forward, the training and eval steps of both stages, and the stage-1
+targets rendered on the device.
 
 A port of `egotap_tpu` (the JAX/Pallas package, which stays the
 reference) to PyTorch and hand-written CUDA kernels for one H100.
@@ -11,8 +12,9 @@ Module names mirror the JAX package (`models/vit.py` <->
 Kernels live in ``csrc/*.cu`` and are built with ``nvcc`` at first use
 (`ops/_build.py`). Each kernel wrapper runs its plain PyTorch version
 only for a CPU tensor; for a CUDA tensor it launches the kernel or
-raises. Entry points (`serving.Predictor`, `train.tasks.LifterTask`)
-default to ``device="cuda"``.
+raises. Entry points (`serving.Predictor`, `train.tasks.HeatmapTask`,
+`train.tasks.LifterTask`, `train.tasks.create_task`) default to
+``device="cuda"``.
 
 This package imports neither ``jax`` nor anything of ``egotap_tpu``.
 """

@@ -3,6 +3,7 @@
     python -m egotap_tpu_torch.breakdown           # bf16 and f32
     python -m egotap_tpu_torch.breakdown --int8    # the int8 serving forward
     python -m egotap_tpu_torch.breakdown --train   # the stage-2 training step
+    python -m egotap_tpu_torch.breakdown --train1  # the stage-1 training step
 
 Builds a full-width `Predictor` (the `serving_config()` configuration,
 seeded random weights) in bf16 and in f32, or with ``--int8`` in the
@@ -16,8 +17,13 @@ float matrix products, convolutions, the rest), each group's top
 kernels by name. ``--train`` profiles `ITERS` stage-2 training steps
 instead (`train.tasks.LifterTask` with the egotap_unrealego preset: bf16
 amp, AdamW, batch 32, seeded `init_state`), and adds the device time of
-the backward recompute of kernels B and C (their profiler ranges). Needs
-a CUDA card; it does not fall back to the CPU.
+the backward recompute of kernels B and C (their profiler ranges).
+``--train1`` profiles `ITERS` stage-1 training steps
+(`train.tasks.HeatmapTask` with the unrealego_heatmap_joint preset: bf16
+amp, stage-1 Adam, batch `BATCH1`, seeded `init_state`) on targets
+rendered on the card from a seeded raw batch (`raw_stage1_batch`), with
+the device time of kernel A's backward recompute (its profiler range)
+apart. Needs a CUDA card; it does not fall back to the CPU.
 """
 
 from __future__ import annotations
@@ -29,9 +35,11 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 BATCH = 32                 # the serving batch of `chip_smoke.py`
+BATCH1 = 16                # the stage-1 presets' batch (`bench.py` train1)
 ITERS = 3                  # profiled forwards, after one warm-up
 
 GROUPS = (("kernel A upsample", ("upsample2x",)),
@@ -121,12 +129,55 @@ def profile_train(rgb, card) -> None:
             (attention.BACKWARD_LABEL, pu_kernel.BACKWARD_LABEL))
 
 
+def raw_stage1_batch(batch: int, seed: int, device="cuda"):
+    """A raw stage-1 batch of 256 x 256 stereo pairs and 16 joints drawn
+    with numpy from ``seed`` (the loaders' keys,
+    `data.pipeline.make_device_preprocess`): N(0, 1) rgb, 2D joints
+    uniform over 1024-space and beyond it (some out of view), one bone of
+    zero length in 2D and one with no length in xy, 3D poses of N(0, 30)
+    cm around pelvises of N(0, 5)."""
+    rng = np.random.default_rng(seed)
+    out = {f"input_rgb_{s}": rng.standard_normal(
+        (batch, 256, 256, 3), dtype=np.float32) for s in ("left", "right")}
+    for side in ("left", "right"):
+        c2d = rng.uniform(-150, 1150, (batch, 16, 2)).astype(np.float32)
+        c2d[0, 3] = c2d[0, 2]
+        out[f"gt_camera_2d_{side}"] = c2d
+    pose = rng.normal(0, 30, (batch, 16, 3)).astype(np.float32)
+    pose[-1, 4, :2] = pose[-1, 0, :2]
+    out.update(gt_local_pose=pose,
+               gt_local_rot=rng.normal(0, 1, (batch, 16, 3)).astype(
+                   np.float32),
+               gt_pelvis_left=rng.normal(0, 5, (batch, 3)).astype(np.float32),
+               gt_pelvis_right=rng.normal(0, 5, (batch, 3)).astype(
+                   np.float32),
+               mask=np.ones((batch,), np.float32))
+    return {k: torch.from_numpy(v).to(device) for k, v in out.items()}
+
+
+def profile_train1(card) -> None:
+    from egotap_tpu_torch.core.config import Config
+    from egotap_tpu_torch.data.pipeline import make_device_preprocess
+    from egotap_tpu_torch.ops import upsample
+    from egotap_tpu_torch.train.tasks import HeatmapTask
+    cfg = Config.from_preset("unrealego_heatmap_joint", batch_size=BATCH1)
+    task = HeatmapTask(cfg, device="cuda")
+    state = task.init_state(seed=0, iters_per_epoch=1000)
+    feed = make_device_preprocess(cfg)(raw_stage1_batch(BATCH1, seed=3))
+    print(f"stage-1 training step, batch {BATCH1}, bf16 amp, stage-1 Adam "
+          f"[{card}]")
+    profile(lambda: task.train_step(state, feed), "training step",
+            (upsample.BACKWARD_LABEL,))
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--int8", action="store_true",
                         help="profile the calibrated int8 serving forward")
     parser.add_argument("--train", action="store_true",
                         help="profile the stage-2 training step")
+    parser.add_argument("--train1", action="store_true",
+                        help="profile the stage-1 training step")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("breakdown: no CUDA device", file=sys.stderr)
@@ -135,6 +186,9 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[0]
+    if args.train1:
+        profile_train1(card)
+        return 0
     g = torch.Generator().manual_seed(1)
     rgb = torch.randn(BATCH, 2, 256, 256, 3, generator=g).cuda()
     if args.train:

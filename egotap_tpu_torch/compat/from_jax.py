@@ -11,11 +11,12 @@ the ViT specials, the Encoder_Block alias keys, and zero tensors for the
 reference-only tensors its forward never reads (torchvision ``fc``, ViT
 ``cls_token`` and ``pooler``).
 
-`task_state_from_jax` carries a JAX `LifterTask` training state (the
-lifter, both frozen nets with their running statistics, the step and the
-optax Adam/AdamW moments) into the port's `train.state.TrainState`, each
-moment through the same layout mapping as its parameter, so that a run
-started in JAX continues in the port.
+`task_state_from_jax` carries a JAX `HeatmapTask` or `LifterTask`
+training state (the trained net with its running statistics, the frozen
+nets of stage 2, the step and the optax Adam/AdamW moments) into the
+port's `train.state.TrainState`, each moment through the same layout
+mapping as its parameter, so that a run started in JAX continues in the
+port.
 
 `install_jax_scales` carries the static activation scales of a JAX
 ``qparams`` collection (``a_scale`` entries, `amax_to_qparams`) into the
@@ -223,34 +224,46 @@ def _optax_states(opt_state):
 
 def task_state_from_jax(jax_state: Any, cfg: Config, iters_per_epoch: int,
                         *, device="cuda") -> TrainState:
-    """The port's `TrainState` holding a JAX `LifterTask` state: lifter
-    params and batch_stats, the frozen ``heatmap`` / ``rot_heatmap`` nets
-    with their running statistics, ``step``, and the optax state's
-    ``count`` and Adam/AdamW moments ``mu`` / ``nu`` (each mapped like its
-    parameter). The optimizer is `make_optimizer(cfg, iters_per_epoch)`,
-    as JAX's `LifterTask.init_state` builds it."""
+    """The port's `TrainState` holding a JAX task's state: for
+    ``heatmap_shared`` (`HeatmapTask`) the HeatmapUNet's params and
+    batch_stats, for ``egotap_autoencoder`` (`LifterTask`) the lifter's
+    and the frozen ``heatmap`` / ``rot_heatmap`` nets with their running
+    statistics; then ``step`` and the optax state's ``count`` and Adam /
+    AdamW moments ``mu`` / ``nu`` (each mapped like its parameter). The
+    optimizer is the one JAX's ``init_state`` builds: stage-1 Adam for
+    stage 1, `make_optimizer(cfg, iters_per_epoch)` for stage 2."""
     dev = resolve_device(device)
-    pos_net, rot_net, lifter = build_nets(cfg)
-    for net, key in ((pos_net, "heatmap"), (rot_net, "rot_heatmap")):
-        net.load_state_dict(heatmap_net_state_dict(
-            jax_state.frozen[key], cfg.model_name), strict=True)
     stats = jax_state.batch_stats
-    lifter.load_state_dict(lifter_state_dict(
-        {"params": jax_state.params, "batch_stats": stats},
-        num_pu_layers=cfg.n_skel_layers), strict=True)
-    state = TrainState.create(
-        lifter, {"heatmap": pos_net, "rot_heatmap": rot_net},
-        make_optimizer(cfg, iters_per_epoch), dev,
-        step=int(np.asarray(jax_state.step)))
-    opt = state.opt
+    if cfg.model == "heatmap_shared":
+        net = HeatmapUNet(cfg.num_heatmap + cfg.num_rot_heatmap
+                          * cfg.limb_dim, cfg.model_name, cfg.views)
+        frozen = {}
+
+        def to_state_dict(params):
+            return heatmap_net_state_dict(
+                {"params": params, "batch_stats": stats}, cfg.model_name)
+        opt = make_optimizer(cfg, iters_per_epoch, stage1=True)
+    else:
+        pos_net, rot_net, net = build_nets(cfg)
+        frozen = {"heatmap": pos_net, "rot_heatmap": rot_net}
+        for key, frozen_net in frozen.items():
+            frozen_net.load_state_dict(heatmap_net_state_dict(
+                jax_state.frozen[key], cfg.model_name), strict=True)
+
+        def to_state_dict(params):
+            return lifter_state_dict(
+                {"params": params, "batch_stats": stats},
+                num_pu_layers=cfg.n_skel_layers)
+        opt = make_optimizer(cfg, iters_per_epoch)
+    net.load_state_dict(to_state_dict(jax_state.params), strict=True)
+    state = TrainState.create(net, frozen, opt, dev,
+                              step=int(np.asarray(jax_state.step)))
     for sub in _optax_states(jax_state.opt_state):
         if "count" in sub._fields:
             opt.count = int(np.asarray(sub.count))
         if "mu" in sub._fields:
             for name in ("mu", "nu"):
-                sd = lifter_state_dict({"params": getattr(sub, name),
-                                        "batch_stats": stats},
-                                       num_pu_layers=cfg.n_skel_layers)
+                sd = to_state_dict(getattr(sub, name))
                 moments = getattr(opt, name)
                 for key in moments:
                     moments[key] = sd[key].to(dev)

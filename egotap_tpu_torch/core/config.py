@@ -1,18 +1,19 @@
-"""Configuration for the serving forward and the stage-2 training step.
+"""Configuration for the serving forward and the training steps.
 
 The port's own copy of the `egotap_tpu/core/config.py` fields that
-`Predictor`, `train.tasks.LifterTask` and `train.optim.make_optimizer`
-read, with the same names, defaults and `derive()` logic (reference
-options/dataset_options.py:29-42). The port always builds the released
-pose estimator's lifter (``--patched_heatmap_ae``), so that flag has no
-copy here. Stage-1, data, checkpoint and logging flags belong to later
-slices.
+`Predictor`, `train.tasks.HeatmapTask` / `LifterTask` and
+`train.optim.make_optimizer` read, with the same names, defaults and
+`derive()` logic (reference options/dataset_options.py:29-42). The port
+always builds the released pose estimator's lifter
+(``--patched_heatmap_ae``), so that flag has no copy here. Data,
+checkpoint and logging flags belong to later slices; ``log_dir`` is here
+only for the ``./log/`` rewrite of ``path_to_trained_heatmap``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass
@@ -27,6 +28,12 @@ class Config:
     skel_layer: str = "LSTM"               # only PU is ported
     n_skel_layers: int = 2
     pu_semantics: str = "chain"            # chain (reference parity) | tree
+    # stage 1: keep the ResNet trunk's own init (reference --init_ImageNet),
+    # with its weights from a torchvision resnet .pth when one is named
+    init_ImageNet: bool = False
+    imagenet_backbone: Optional[str] = None
+    # stage-1 warm start: a HeatmapUNet .pth (`train.tasks.HeatmapTask`)
+    path_to_trained_heatmap: Optional[str] = None
     # int8 inference of the heatmap nets' convs and of the lifter's ViT
     # and FC matmuls (ops/quant.py); `Predictor(int8=None)` follows these
     int8_heatmap_inference: bool = False
@@ -47,9 +54,12 @@ class Config:
     weight_decay: float = 0.0
     opt_eps: float = 1e-4
     lambda_mpjpe: float = 1.0
+    lambda_heatmap: float = 1.0
+    lambda_rot_heatmap: float = 1.0
     lambda_cos_sim: float = -1e-2
     use_amp: bool = False                  # bf16 compute
     compute_dtype: str = "float32"         # float32 | bfloat16
+    log_dir: str = "./log"
 
     # --- derived (set by derive()) --------------------------------------
     estimate_head: bool = True
@@ -96,11 +106,26 @@ class Config:
         return cls(**{**PRESETS[name], **overrides}).derive()
 
 
-# The stage-2 pose estimator (egotap_tpu/core/config.py:238-245, reference
-# scripts/train/PoseEstimator/unrealego.sh), less the keys the port has no
-# field for yet: experiment_name (logging), patched_heatmap_ae (always on),
-# init_ImageNet (stage 1) and path_to_trained_heatmap (checkpoint I/O).
+# The shipped presets (egotap_tpu/core/config.py:224-273, reference
+# scripts/train/Heatmap/{Joint,Limb}/*.sh and PoseEstimator/unrealego.sh),
+# less the keys the port has no field for yet: experiment_name (logging),
+# auto_restart (the training loop) and patched_heatmap_ae (always on).
+# The stage-2 preset also leaves out init_ImageNet and
+# path_to_trained_heatmap, which only stage 1 reads: `LifterTask.init_state`
+# takes the frozen nets' state_dicts from its caller.
 PRESETS = {
+    "unrealego_heatmap_joint": dict(
+        model="heatmap_shared", optimizer_type="Adam", lr=1e-3,
+        niter=5, niter_decay=5, batch_size=16,
+        num_heatmap=15, num_rot_heatmap=0, heatmap_type="none",
+        init_ImageNet=True, use_amp=True,
+    ),
+    "unrealego_heatmap_limb": dict(
+        model="heatmap_shared", optimizer_type="Adam", lr=1e-3,
+        niter=5, niter_decay=5, batch_size=16,
+        num_heatmap=0, num_rot_heatmap=15, heatmap_type="sin",
+        init_ImageNet=True, use_amp=True,
+    ),
     "egotap_unrealego": dict(
         model="egotap_autoencoder", optimizer_type="AdamW",
         lr_policy="cos_anneal_warmup", lr=1e-3,
@@ -109,5 +134,17 @@ PRESETS = {
         niter=1, niter_decay=15, batch_size=32,
         num_heatmap=15, num_rot_heatmap=15, heatmap_type="sin",
         use_amp=True,
+    ),
+    "egocap_heatmap_joint": dict(
+        model="heatmap_shared", joint_preset="EgoCap",
+        optimizer_type="Adam", lr=1e-3, niter=5, niter_decay=5,
+        batch_size=16, num_heatmap=17, num_rot_heatmap=0,
+        heatmap_type="none", init_ImageNet=True, use_amp=True,
+    ),
+    "egocap_heatmap_limb": dict(
+        model="heatmap_shared", joint_preset="EgoCap",
+        optimizer_type="Adam", lr=1e-3, niter=5, niter_decay=5,
+        batch_size=16, num_heatmap=0, num_rot_heatmap=17,
+        heatmap_type="sin", init_ImageNet=True, use_amp=True,
     ),
 }

@@ -7,12 +7,12 @@ to a few elements; the rms error catches a small fault spread over all
 of them (a skipped bf16 operand rounding), which one-ulp flips of the
 final bf16 rounding would hide from the max.
 
-Gradients: on the card the wrappers of kernels B and C are the forward
-of a `torch.autograd.Function` whose backward is autograd over the
-plain version, recomputed from the saved inputs (`plain_vjp`). Kernels A
-and D have no backward yet: their wrappers refuse inputs that need a
-gradient (`refuse_grad`) instead of returning an output cut off from
-autograd. On the CPU the plain versions differentiate.
+Gradients: on the card the wrappers of kernels A, B and C are the
+forward of a `torch.autograd.Function` whose backward is autograd over
+the plain version, recomputed from the saved inputs (`plain_vjp`).
+Kernel D (int8 inference) has no backward: its wrapper refuses inputs
+that need a gradient (`refuse_grad`) instead of returning an output cut
+off from autograd. On the CPU the plain versions differentiate.
 """
 
 from __future__ import annotations

@@ -8,6 +8,13 @@ Counterpart of `egotap_tpu/ops/upsample.py`. The reference decoder uses
 CUDA tensor and `upsample2x_plain` for a CPU tensor. Both compute each
 output pixel as the 2-tap lerp of input rows, then of input columns,
 ``a * (1 - f) + b * f`` in f32, with the taps of `lerp_taps`.
+
+Gradients: on the card the kernel is the forward of `_KernelA`, whose
+backward is autograd over `upsample2x_plain` recomputed from the saved
+input (`ops.plain_vjp`): the transposed interpolation, as JAX's
+`custom_vjp` differentiates its einsum formulation
+(`egotap_tpu/ops/upsample.py:139-149`). On the CPU the plain version
+differentiates itself.
 """
 
 from __future__ import annotations
@@ -20,7 +27,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from egotap_tpu_torch.ops import _build, refuse_grad
+from egotap_tpu_torch.ops import _build, plain_vjp
 
 
 @functools.lru_cache(maxsize=None)
@@ -66,6 +73,8 @@ def upsample2x_plain(x: torch.Tensor) -> torch.Tensor:
 TOL = {torch.float32: (2e-5, 2e-6), torch.bfloat16: (8e-3, 5e-4)}
 
 _VEC = {torch.float32: (4, 0), torch.bfloat16: (8, 1)}
+
+BACKWARD_LABEL = "kernel A backward (plain recompute)"   # profiler range
 
 THREADS = 256                 # a block of kernel A
 BAND_ROWS = 16                # output rows a block, at most
@@ -155,15 +164,10 @@ def kernel_resources(dtype: torch.dtype, smem: int) -> dict:
             "threads": info[4]}
 
 
-def upsample2x_align_corners(x: torch.Tensor) -> torch.Tensor:
-    """Exact ``Upsample(scale_factor=2, bilinear, align_corners=True)``.
-
-    x: (..., H, W, C) NHWC. Returns (..., 2H, 2W, C) in x's dtype."""
-    if x.device.type == "cpu":
-        return upsample2x_plain(x)
+def _launch(x: torch.Tensor) -> torch.Tensor:
+    """Check what kernel A covers and launch it on (..., H, W, C)."""
     if x.dtype not in _VEC:
         raise NotImplementedError(f"upsample kernel: dtype {x.dtype}")
-    refuse_grad("upsample", x)
     h, w, c = x.shape[-3:]
     n = x.numel() // (h * w * c)
     geo = launch_geometry(n, h, w, c, x.dtype)
@@ -178,6 +182,31 @@ def upsample2x_align_corners(x: torch.Tensor) -> torch.Tensor:
         _device_taps(w, x.device).data_ptr(), n, h, w, c, _VEC[x.dtype][1],
         geo["band"], geo["cv"], geo["staged"], _build.stream_ptr(x)),
         "upsample2x")
+    return out
+
+
+class _KernelA(torch.autograd.Function):
+    """Kernel A forward; backward: autograd over the plain version,
+    recomputed from the saved input."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _launch(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return plain_vjp(upsample2x_plain, ctx.saved_tensors,
+                         ctx.needs_input_grad, grad, BACKWARD_LABEL)
+
+
+def upsample2x_align_corners(x: torch.Tensor) -> torch.Tensor:
+    """Exact ``Upsample(scale_factor=2, bilinear, align_corners=True)``.
+
+    x: (..., H, W, C) NHWC. Returns (..., 2H, 2W, C) in x's dtype."""
+    if x.device.type == "cpu":
+        return upsample2x_plain(x)
+    out = _KernelA.apply(x)
     upsample2x_align_corners.launches += 1
     return out
 

@@ -1,7 +1,9 @@
-"""Stage-2 pose losses, reference-parity semantics.
+"""Training losses, reference-parity semantics.
 
-Counterpart of `egotap_tpu/train/losses.py` (the pose losses; the
-stage-1 heatmap losses belong to the stage-1 slice):
+Counterpart of `egotap_tpu/train/losses.py`:
+  * `heatmap_mse`: the stage-1 joint heatmaps' MSE;
+  * `limb_heatmap_mse`: the stage-1 limb maps' MSE, each channel
+    divided by the square root of its bone's pixel length;
   * `mpjpe`: mean per-joint L2 (reference utils/loss.py:79-85);
   * `per_sample_mpjpe`: the same per sample;
   * `cos_sim`: summed bone-direction cosine similarity, trained with a
@@ -15,6 +17,18 @@ from typing import Sequence
 import torch
 
 COS_EPS = 1e-8  # torch.nn.CosineSimilarity default
+
+
+def heatmap_mse(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    return ((pred - gt) ** 2).mean()
+
+
+def limb_heatmap_mse(pred: torch.Tensor, gt: torch.Tensor,
+                     plength: torch.Tensor) -> torch.Tensor:
+    """MSE of sqrt(pixel-length)-normalized limb maps. pred/gt: NHWC
+    heatmaps (B, H, W, L); plength: (B, L) per-channel pixel lengths."""
+    norm = plength.sqrt()[..., None, None, :]
+    return (((pred - gt) / norm) ** 2).mean()
 
 
 def mpjpe(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:

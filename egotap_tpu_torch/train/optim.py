@@ -135,6 +135,6 @@ def make_optimizer(cfg: Config, iters_per_epoch: int,
         if cfg.optimizer_type in ("DAdam", "DSGD", "DAdaGrad", "Prodigy"):
             raise NotImplementedError(
                 f"optimizer {cfg.optimizer_type}: the learned-LR optimizers "
-                "are not ported yet (ROADMAP.md section 1, item 3)")
+                "are not ported yet (ROADMAP.md section 1, item 2)")
         raise NotImplementedError(f"optimizer {cfg.optimizer_type}")
     return Optimizer(kind, sched, cfg.opt_eps, cfg.weight_decay)

@@ -59,7 +59,9 @@ def test_unknown_presets_raise():
 TRAINING = ("model", "use_gt_heatmap", "batch_size", "epoch_count", "niter",
             "niter_decay", "optimizer_type", "lr_policy",
             "lr_decay_iters_step", "lr", "weight_decay", "opt_eps",
-            "lambda_mpjpe", "lambda_cos_sim", "use_amp", "compute_dtype")
+            "lambda_mpjpe", "lambda_cos_sim", "use_amp", "compute_dtype",
+            "lambda_heatmap", "lambda_rot_heatmap", "init_ImageNet",
+            "imagenet_backbone", "path_to_trained_heatmap", "log_dir")
 
 
 def test_training_defaults_match_jax():
@@ -70,8 +72,9 @@ def test_training_defaults_match_jax():
 
 def test_stage2_preset_matches_jax():
     """The port's egotap_unrealego preset is the JAX one less the keys the
-    port has no field for (logging, stage 1, checkpoint I/O, and the
-    always-on patched ViT lifter)."""
+    port has no field for (logging, the always-on patched ViT lifter) or
+    does not read in stage 2 (init_ImageNet, path_to_trained_heatmap:
+    `LifterTask.init_state` takes the frozen nets from its caller)."""
     from egotap_tpu.core.config import PRESETS as JAX_PRESETS
     from egotap_tpu_torch.core.config import PRESETS
     ref = JAX_PRESETS["egotap_unrealego"]
@@ -84,4 +87,26 @@ def test_stage2_preset_matches_jax():
     assert cfg.batch_size == 4 and cfg.optimizer_type == "AdamW"
     assert cfg.num_joints_out == 16 and cfg.estimate_head
     with pytest.raises(ValueError):
-        Config.from_preset("unrealego_heatmap_joint")
+        Config.from_preset("no_such_preset")
+
+
+STAGE1 = ["unrealego_heatmap_joint", "unrealego_heatmap_limb",
+          "egocap_heatmap_joint", "egocap_heatmap_limb"]
+
+
+@pytest.mark.parametrize("preset", STAGE1)
+def test_stage1_presets_match_jax(preset):
+    """The four stage-1 presets are the JAX ones less the keys the port
+    has no field for yet (logging, the training loop's auto-restart), and
+    derive the same configuration."""
+    from egotap_tpu.core.config import PRESETS as JAX_PRESETS
+    from egotap_tpu_torch.core.config import PRESETS
+    ref, ours = JAX_PRESETS[preset], PRESETS[preset]
+    assert set(ref) - set(ours) == {"experiment_name", "auto_restart"}
+    assert ours == {k: ref[k] for k in ours}
+    cfg = Config.from_preset(preset)
+    want = JaxConfig(**ref).derive()
+    for name in DERIVED + TRAINING + ("joint_preset", "num_heatmap",
+                                      "num_rot_heatmap", "heatmap_type"):
+        assert getattr(cfg, name) == getattr(want, name), name
+    assert cfg.model == "heatmap_shared" and cfg.init_ImageNet

@@ -1,6 +1,7 @@
-"""Gradients through kernels B and C's autograd functions
-(egotap_tpu_torch.ops.attention._KernelB, ops.pu_kernel._KernelC) on the
-CPU against `jax.grad` of the JAX package's functions at f32.
+"""Gradients through kernels A, B and C's autograd functions
+(egotap_tpu_torch.ops.upsample._KernelA, ops.attention._KernelB,
+ops.pu_kernel._KernelC) on the CPU against `jax.grad` / `jax.vjp` of the
+JAX package's functions at f32.
 
 On the card each function's forward is its kernel; here the launch is
 replaced by the plain version (for C fed the kernel's (out, in) weight
@@ -18,9 +19,11 @@ import torch
 from egotap_tpu.models.cells import PUChain as JaxPUChain
 from egotap_tpu.ops.attention import multihead_attention as jax_mha_unpacked
 from egotap_tpu.ops.attention import multihead_attention_packed as jax_mha
+from egotap_tpu.ops.upsample import upsample2x_align_corners as jax_upsample
 from egotap_tpu_torch.models import cells
 from egotap_tpu_torch.ops import attention as att
 from egotap_tpu_torch.ops import pu_kernel
+from egotap_tpu_torch.ops import upsample as up
 from tests.test_torch_pu_chain import _port_module
 
 RTOL = 1e-5     # f32, the same functions differentiated in another order
@@ -31,6 +34,37 @@ def _close(got, ref):
     ref = np.asarray(ref, np.float64)
     assert got.shape == ref.shape
     assert np.abs(got - ref).max() <= RTOL * np.abs(ref).max()
+
+
+@pytest.fixture
+def kernel_a_on_cpu(monkeypatch):
+    """Kernel A's autograd function with its launch played by the plain
+    version."""
+    launches = []
+    monkeypatch.setattr(up, "_launch", lambda x: launches.append(x.shape)
+                        or up.upsample2x_plain(x))
+    return up._KernelA.apply, launches
+
+
+# the decoder's three grids (8 -> 16 -> 32 -> 64 at a 256 x 256 input, here
+# at a 64 x 64 one), and leading dimensions beyond the batch
+@pytest.mark.parametrize("through", ["function", "cpu_path"])
+@pytest.mark.parametrize("shape", [(2, 2, 2, 16), (2, 4, 4, 8),
+                                   (2, 8, 8, 8), (2, 3, 5, 7, 4)])
+def test_upsample_grad_matches_jax(kernel_a_on_cpu, shape, through):
+    """The transposed interpolation: JAX's `custom_vjp` differentiates its
+    einsum formulation, the port autograd over the plain lerps."""
+    rng = np.random.default_rng(len(shape) * 10 + shape[1])
+    x = rng.standard_normal(shape).astype(np.float32)
+    ct = rng.standard_normal(shape[:-3] + (2 * shape[-3], 2 * shape[-2],
+                                           shape[-1])).astype(np.float32)
+    _, vjp = jax.vjp(jax_upsample, x)
+    tx = torch.from_numpy(x).requires_grad_(True)
+    fn = kernel_a_on_cpu[0] if through == "function" else \
+        up.upsample2x_align_corners
+    (fn(tx) * torch.from_numpy(ct)).sum().backward()
+    assert len(kernel_a_on_cpu[1]) == (through == "function")
+    _close(tx.grad, vjp(ct)[0])
 
 
 @pytest.fixture

@@ -36,7 +36,7 @@ def test_port_imports_no_jax_and_nothing_of_egotap_tpu():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 23            # every module of the slice imported
+    assert int(count) >= 36            # every module of the port imported
     assert bad == "[]"
 
 
@@ -62,3 +62,23 @@ def test_lifter_task_defaults_to_cuda(entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make(cfg)
     assert make(cfg, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("entry,preset", [
+    ("HeatmapTask", "unrealego_heatmap_joint"),
+    ("create_task", "unrealego_heatmap_joint"),
+    ("create_task", "unrealego_heatmap_limb")])
+def test_heatmap_task_defaults_to_cuda(entry, preset):
+    """The stage-1 task, built directly or by `create_task` from a
+    stage-1 preset: with no card it raises, with device='cpu' it builds a
+    `HeatmapTask`."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from egotap_tpu_torch.core.config import Config
+    from egotap_tpu_torch.train import tasks
+    cfg = Config.from_preset(preset)
+    make = getattr(tasks, entry)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make(cfg)
+    task = make(cfg, device="cpu")
+    assert isinstance(task, tasks.HeatmapTask) and task.device.type == "cpu"

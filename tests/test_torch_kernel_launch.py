@@ -92,14 +92,16 @@ def _call(which):
 
 WRAPPERS = ["attention", "attention_unpacked", "upsample", "pu_chain",
             "fused_layer1"]
-DIFFERENTIABLE = ["attention", "attention_unpacked", "pu_chain"]
+DIFFERENTIABLE = ["attention", "attention_unpacked", "upsample", "pu_chain"]
+KERNEL_FUNCTION = {"attention": "_KernelB", "attention_unpacked": "_KernelB",
+                   "upsample": "_KernelA", "pu_chain": "_KernelC"}
 
 
-@pytest.mark.parametrize("which", ["upsample", "fused_layer1"])
+@pytest.mark.parametrize("which", ["fused_layer1"])
 def test_refuses_inputs_that_require_grad(fake, which):
-    """Kernels A and D have no backward: with grad mode on, an input that
-    requires grad is refused before anything launches (an output with no
-    grad_fn would drop the gradient without a word)."""
+    """Kernel D (int8 inference) has no backward: with grad mode on, an
+    input that requires grad is refused before anything launches (an
+    output with no grad_fn would drop the gradient without a word)."""
     wrapper, leaves, call = _call(which)
     before = wrapper.launches
     for leaf in leaves:
@@ -112,10 +114,10 @@ def test_refuses_inputs_that_require_grad(fake, which):
 
 @pytest.mark.parametrize("which", DIFFERENTIABLE)
 def test_launches_under_grad(fake, which):
-    """Kernels B and C are the forward of an autograd function: with an
-    input that requires grad they launch once, counted once, and return
-    an output whose grad_fn is that function (its backward recomputes
-    the plain version, `tests/test_torch_grad.py`)."""
+    """Kernels A, B and C are the forward of an autograd function: with
+    an input that requires grad they launch once, counted once, and
+    return an output whose grad_fn is that function (its backward
+    recomputes the plain version, `tests/test_torch_grad.py`)."""
     wrapper, leaves, call = _call(which)
     for leaf in leaves:
         before = wrapper.launches
@@ -129,8 +131,7 @@ def test_launches_under_grad(fake, which):
         fn = out.grad_fn                 # the function, or a view of it
         names = {type(fn).__name__} | {type(f).__name__ for f, _ in
                                        fn.next_functions if f is not None}
-        kernel = "_KernelC" if which == "pu_chain" else "_KernelB"
-        assert f"{kernel}Backward" in names
+        assert f"{KERNEL_FUNCTION[which]}Backward" in names
 
 
 @pytest.mark.parametrize("which", WRAPPERS)

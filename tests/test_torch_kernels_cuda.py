@@ -161,6 +161,34 @@ def test_upsample_edge_shapes(gen, shape, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(16, 8, 8, 1024), (16, 16, 16, 1024),
+                                   (16, 32, 32, 512)])
+def test_upsample_grad_matches_plain(gen, shape, dtype):
+    """Kernel A under autograd at the stage-1 decoder's three calls (batch
+    16): one launch, the kernel's output, and its backward (autograd over
+    the plain version, recomputed) against autograd over the plain
+    version. Both backwards accumulate the taps with atomics on the card
+    (`index_select`'s backward), in an order that may change from run to
+    run: the f32 sums of up to four taps reassociate, and a bf16 gradient
+    may then round the other way, so the check is `TOL`, not equality."""
+    dt = getattr(torch, dtype)
+    x = torch.randn(shape, generator=gen, device="cuda").to(dt)
+    x.requires_grad_(True)
+    n, h, w, c = shape
+    ct = torch.randn(n, 2 * h, 2 * w, c, generator=gen, device="cuda").to(dt)
+    before = up.upsample2x_align_corners.launches
+    out = up.upsample2x_align_corners(x)
+    assert up.upsample2x_align_corners.launches == before + 1
+    assert type(out.grad_fn).__name__ == "_KernelABackward"
+    _close(out.detach(), up.upsample2x_plain(x.detach()), up.TOL[dt])
+    (got,) = torch.autograd.grad(out, x, ct)
+    leaf = x.detach().requires_grad_(True)
+    (want,) = torch.autograd.grad(up.upsample2x_plain(leaf), leaf, ct)
+    assert got.dtype == dt and got.shape == x.shape
+    _close(got, want, up.TOL[dt])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_upsample_kernel_resources(gen, dtype):
     """At the decoder's largest staging (32 x 32 x 512): the build log and
     the runtime agree on the registers, nothing spills, and at least four

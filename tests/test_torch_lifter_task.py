@@ -99,7 +99,7 @@ def _check_state(port, ref):
     assert port.opt.count == int(ref.step)
     want = lifter_state_dict({"params": ref.params,
                               "batch_stats": ref.batch_stats})
-    got = port.lifter.state_dict()
+    got = port.net.state_dict()
     for k, v in want.items():
         if not k.endswith("num_batches_tracked"):
             err = float((got[k].float() - v).abs().max())
@@ -146,7 +146,7 @@ def test_trajectory_matches_jax(jax_run):
              if n.endswith("running_mean")
              and not torch.equal(t, frozen0["heatmap"][n])]
     assert moved                      # the frozen nets' statistics evolve
-    assert not any(m.training for net in (state.lifter, *state.frozen.values())
+    assert not any(m.training for net in (state.net, *state.frozen.values())
                    for m in net.modules())
 
 
@@ -227,7 +227,7 @@ def test_int8_eval_step_is_the_predictor_forward():
                       int8_lifter_inference=True)
     task = LifterTask(cfg, device="cpu")
     state = task.init_state(seed=3, iters_per_epoch=IPE)
-    before = {k: v.clone() for k, v in state.lifter.state_dict().items()}
+    before = {k: v.clone() for k, v in state.net.state_dict().items()}
     batch = _batches(1, seed=4)[0]
     calib = [{"input_rgb": b["input_rgb"] + 0.1} for b in _batches(2, 5)]
     prepared = task.prepare_inference(state, calib)
@@ -235,7 +235,7 @@ def test_int8_eval_step_is_the_predictor_forward():
     out = task.eval_step(prepared, batch)
     pred = Predictor(cfg, state.frozen["heatmap"].state_dict(),
                      state.frozen["rot_heatmap"].state_dict(),
-                     state.lifter.state_dict(), bf16=True, device="cpu")
+                     state.net.state_dict(), bf16=True, device="cpu")
     copied = 0
     for net, twin in zip(pred.nets, prepared.inference.nets):
         mods = dict(net.named_modules())
@@ -248,5 +248,5 @@ def test_int8_eval_step_is_the_predictor_forward():
     assert torch.equal(out["pred_pose"], want)
     assert out["metrics"]["mpjpe"].shape == (2,)
     assert state.inference is None
-    for k, v in state.lifter.state_dict().items():
+    for k, v in state.net.state_dict().items():
         assert torch.equal(v, before[k]), k
