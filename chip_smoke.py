@@ -78,10 +78,32 @@ Exits non-zero, printing no result, when there is no card. Phases:
    f32 step of batch 2 on the card against the CPU (losses, the UNet's
    gradient by relative L2) and the same check rejecting A's output
    detached from the graph.
-8. One JSON line with every kernel's numbers (with each bf16 kernel's
-   launches per training and eval step, A's per stage-1 step, and the
-   backward recompute time a launch of A (stage 1), B and C), then the
-   result line.
+8. The train and test CLIs end to end at full width, each through its
+   `main` as a user calls it (no device argument: the card): a synthetic
+   UnrealEgo dataset (`data/synthetic.py`, 2 sequences x 32 frames a
+   split, 256 x 256 RGB, 64 x 64 maps) in a temporary directory; then
+   `cli.train` with the unrealego_heatmap_joint and unrealego_heatmap_limb
+   presets (batch 16, 4 steps an epoch), the egotap_unrealego preset
+   (batch 32, 2 steps an epoch) warm-started from both ``ckpt_best``
+   through the preset's own path_to_trained_heatmap, each for 2 epochs
+   (``--niter 1 --niter_decay 1``), and `cli.test` on the stage-2 run.
+   Checks: every run returns; its artifacts (train_opt.txt, the summary,
+   ckpt_best and ckpt_2 but no ckpt_1, test_result.txt with categories
+   001 and 002; detail_result.txt with 64 rows, categorical_result.txt,
+   pred_pose.npy of (64, 16, 3)); the launches of A, B and C, one set a
+   training step or eval batch; every tensor of each final state on the
+   card; the stage-2 state right after `_init_task_state` equal to both
+   stage-1 ``ckpt_best`` bit for bit (a copy with one element changed
+   caught), and its frozen parameters still equal after training;
+   ``ckpt_best`` in a fresh f32 template giving pred_pose.npy's rows on
+   the test split's first batch within 1e-6 of their max (one tensor
+   perturbed rejected). Printed: each run's wall time, each epoch's time
+   and its time waiting on the loader, and `evaluate`'s pairs/s.
+9. One JSON line with every kernel's numbers (with each bf16 kernel's
+   launches per training and eval step, A's per stage-1 step, the
+   backward recompute time a launch of A (stage 1), B and C, and the
+   launches of A, B and C in each CLI run of phase 8), then the result
+   line.
 """
 
 import json
@@ -1403,6 +1425,343 @@ def phase_train1(torch, card):
     return {"counts": runs[STAGE1_PRESETS[0]]["counts"], "backward": backward}
 
 
+# the CLIs end to end (phase 8): a synthetic UnrealEgo dataset of 2
+# sequences x CLI_FRAMES frames a split at full width (256 x 256 RGB,
+# 64 x 64 maps), both stage-1 presets, then the stage-2 preset warm-started
+# from their ckpt_best, then the test CLI
+CLI_FRAMES = 32
+CLI_PRESETS = ("unrealego_heatmap_joint", "unrealego_heatmap_limb",
+               "egotap_unrealego")
+# kernel launches a training step or an eval batch (stage 1: A in the
+# UNet's decoder; stage 2 and its eval: the two frozen nets' decoders, the
+# Grid-ViT's three blocks and the PU chain)
+PER_UNIT = {"heatmap_shared": {"upsample": 3},
+            "egotap_autoencoder": {"upsample": 6, "attention": 3,
+                                   "pu_chain": 1}}
+# ckpt_best reloaded into a fresh f32 template: its pose on the test
+# split's first batch against pred_pose.npy's rows, relative to their max
+RELOAD_TOL = 1e-6
+CONTROL_PARAM = "pose_mlp.pose_fcs.0.bias"
+
+
+class Tee:
+    """Standard output passed through and kept, to read what a CLI
+    prints."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self):
+        return "".join(self.parts)
+
+
+def empty_cache(torch):
+    """Wait for the card and free its cached blocks (no-op without one,
+    in a CPU rehearsal)."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def run_cli(torch, main, argv, **kw):
+    """``main(argv, **kw)`` with the launch counters zeroed just before:
+    (wall s, launch counts, what it printed)."""
+    import contextlib
+    tee = Tee(sys.stdout)
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        main(argv, **kw)
+    empty_cache(torch)
+    return time.perf_counter() - t0, read_counts(), tee.text()
+
+
+def differing(got, want):
+    """Names of the entries of two state_dicts that are not equal bit for
+    bit (all of them when the key sets differ)."""
+    import torch
+    if sorted(got) != sorted(want):
+        return sorted(set(got) | set(want))
+    return [k for k in want if not torch.equal(got[k].cpu(), want[k].cpu())]
+
+
+def state_tensors(state):
+    """Every tensor a training state holds, by a flat name."""
+    out = {f"net.{k}": v for k, v in state.net.state_dict().items()}
+    for key, net in state.frozen.items():
+        out.update({f"{key}.{k}": v for k, v in net.state_dict().items()})
+    for name in ("mu", "nu"):
+        out.update({f"opt.{name}.{k}": v
+                    for k, v in getattr(state.opt, name).items()})
+    return out
+
+
+def cli_units(cfg, make_loader, epochs):
+    """Training steps and eval batches of one run: the training epochs
+    (with a validation each), the test split and its motion categories."""
+    from egotap_tpu_torch.eval.categories import MOTION_CATEGORIES
+    return (epochs * (len(make_loader(cfg, "train"))
+                      + len(make_loader(cfg, "validation")))
+            + len(make_loader(cfg, "test"))
+            + sum(len(make_loader(cfg, "test", c))
+                  for c in MOTION_CATEGORIES))
+
+
+def check_run_artifacts(cfg):
+    """A training run's files (see the module docstring, phase 8); returns
+    its per-epoch ``Time/`` scalars from the summary."""
+    import os
+    from egotap_tpu_torch.train import state as state_lib
+    exp = cfg.experiment_dir
+    for name in ("train_opt.txt", os.path.join("summary", "metrics.jsonl"),
+                 "test_result.txt"):
+        if not os.path.isfile(os.path.join(exp, name)):
+            raise AssertionError(f"{cfg.experiment_name}: no {name}")
+    if not (state_lib.checkpoint_exists(exp, "best")
+            and state_lib.checkpoint_exists(exp, 2)
+            and not state_lib.checkpoint_exists(exp, 1)):
+        raise AssertionError(f"{cfg.experiment_name}: checkpoints "
+                             f"{sorted(os.listdir(exp))}")
+    result = open(os.path.join(exp, "test_result.txt")).read()
+    for cat in ("001_jumping", "002_falling_down"):
+        if f"category: {cat}\n" not in result:
+            raise AssertionError(f"{cfg.experiment_name}: test_result.txt "
+                                 f"has no line for {cat}")
+    epochs = {}
+    for line in open(os.path.join(exp, "summary", "metrics.jsonl")):
+        rec = json.loads(line)
+        if rec["tag"].startswith("Time/"):
+            epochs.setdefault(rec["step"], {})[rec["tag"][5:]] = rec["value"]
+    return epochs
+
+
+def phase_cli(torch, card, device=None, image_size=64, frames=CLI_FRAMES):
+    """The train and test CLIs end to end on a synthetic dataset (see the
+    module docstring, phase 8). ``device`` is passed on to the CLIs when
+    given (a rehearsal on the CPU); the card is their default."""
+    import os
+    import re
+    import tempfile
+
+    import numpy as np
+    from egotap_tpu_torch.cli import test as cli_test
+    from egotap_tpu_torch.cli import train as cli_train
+    from egotap_tpu_torch.core.config import Config
+    from egotap_tpu_torch.data.pipeline import make_loader
+    from egotap_tpu_torch.data.synthetic import generate_dataset
+    from egotap_tpu_torch.train import loop
+    from egotap_tpu_torch.train import state as state_lib
+    from egotap_tpu_torch.train.tasks import create_task
+
+    kw = {} if device is None else {"device": device}
+    dev = device or "cuda"
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        t0 = time.perf_counter()
+        generate_dataset(data, "UnrealEgo", num_sequences=2,
+                         frames_per_seq=frames, image_size=image_size)
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(data) for f in fs)
+        print(f"  synthetic dataset: 3 splits of 2 x {frames} frames, "
+              f"{4 * image_size} x {4 * image_size} RGB, {size / 1e6:.1f} MB, "
+              f"written in {time.perf_counter() - t0:.2f} s")
+        common = ["--data_dir", data, "--default_data_path",
+                  "./SyntheticData", "--load_size_heatmap", str(image_size),
+                  str(image_size), "--niter", "1", "--niter_decay", "1",
+                  "--log_dir", os.path.join(tmp, "log"),
+                  "--result_dir", os.path.join(tmp, "results"),
+                  # a NaN at epoch 1 ends the run (the artifact checks then
+                  # fail) instead of restarting it without end
+                  "--auto_terminate", "true"]
+        best = {}
+        for preset in CLI_PRESETS:
+            argv = ["--preset", preset] + common
+            cfg = Config.from_args(argv)
+            if preset == CLI_PRESETS[2]:
+                warm_start_check(torch, cfg, best, loop, create_task, kw)
+            states = []
+            wall, counts, _ = run_cli(
+                torch, cli_train.main, argv,
+                epoch_callback=lambda r: states.append(r["state"]), **kw)
+            launches[preset] = counts
+            units = cli_units(cfg, make_loader, 2)
+            print(f"  {preset}: returned after {wall:.2f} s; launches "
+                  f"{counts} over {units} training steps and eval batches "
+                  f"(batch {cfg.batch_size})")
+            expect_counts(counts, PER_UNIT[cfg.model], units, preset, device)
+            epochs = check_run_artifacts(cfg)
+            for e, t in sorted(epochs.items()):
+                print(f"    epoch {e}: {t['epoch_s']:.3f} s, waiting on the "
+                      f"loader {t['loader_wait_s']:.3f} s (share "
+                      f"{t['loader_wait_s'] / t['epoch_s']:.3f}) [{card}]")
+            final = states[-1]
+            off = [k for k, t in state_tensors(final).items()
+                   if t.device.type != torch.device(dev).type]
+            if off:
+                raise AssertionError(f"{preset}: {len(off)} tensors not on "
+                                     f"{dev}, e.g. {off[:3]}")
+            print(f"    all {len(state_tensors(final))} tensors of the "
+                  f"final state on {dev}; checkpoints "
+                  f"{sorted(os.listdir(cfg.experiment_dir))}")
+            epoch_parts(torch, cfg, final, os.path.join(tmp, "probe"), card,
+                        kw)
+            if cfg.model == "heatmap_shared":
+                best[preset] = state_lib.read_checkpoint(os.path.join(
+                    cfg.experiment_dir, "ckpt_best"))["net"]
+            else:
+                frozen_params_check(final, best)
+            del states, final
+            empty_cache(torch)
+
+        argv = ["--preset", CLI_PRESETS[2]] + common
+        wall, counts, out = run_cli(torch, cli_test.main, argv, **kw)
+        launches["cli.test"] = counts
+        cfg = Config.from_args(argv)
+        units = cli_units(cfg, make_loader, 0)
+        pps = float(re.search(r"throughput: ([0-9.]+) pairs/s",
+                              out).group(1))
+        print(f"  cli.test: returned after {wall:.2f} s; launches {counts} "
+              f"over {units} eval batches; evaluate {pps:.1f} pairs/s "
+              f"(f32, batch {cfg.batch_size}, timed after the first batch) "
+              f"[{card}]")
+        expect_counts(counts, PER_UNIT[cfg.model], units, "cli.test", device)
+        res = cfg.results_dir
+        n = 2 * frames
+        detail = open(os.path.join(res, "detail_result.txt")).read()
+        cats = open(os.path.join(res, "categorical_result.txt")).read()
+        pred = np.load(os.path.join(res, "pred_pose.npy"))
+        if len(detail.splitlines()) != n + 1 or pred.shape != (n, 16, 3) \
+                or not np.isfinite(pred).all() or len(cats.splitlines()) != 4:
+            raise AssertionError(f"cli.test: detail {len(detail.splitlines())}"
+                                 f" lines, pose {pred.shape}, categorical "
+                                 f"{cats!r}")
+        print(f"    detail_result.txt {n} rows, categorical_result.txt "
+              f"{len(cats.splitlines())} lines, pred_pose.npy {pred.shape}")
+        reload_check(torch, cfg, pred, kw)
+    return launches
+
+
+def epoch_parts(torch, cfg, state, probe_dir, card, kw):
+    """What an epoch spends besides its steps, timed apart on the run's
+    final state: one validation pass (`evaluate`) and one checkpoint
+    write (`save_checkpoint`, as for ``best`` and each epoch)."""
+    import os
+    from egotap_tpu_torch.eval.evaluate import evaluate
+    from egotap_tpu_torch.train import state as state_lib
+    from egotap_tpu_torch.train.tasks import create_task
+    task = create_task(cfg, **kw)
+    t0 = time.perf_counter()
+    evaluate(cfg, task, state, mode="validation", **kw)
+    val_s = time.perf_counter() - t0
+    empty_cache(torch)
+    t0 = time.perf_counter()
+    path = state_lib.save_checkpoint(probe_dir, cfg.experiment_name, state)
+    ckpt_s = time.perf_counter() - t0
+    size = os.path.getsize(os.path.join(path, state_lib.CKPT_FILE))
+    print(f"    epoch parts: a validation pass {val_s:.3f} s, a checkpoint "
+          f"write {ckpt_s:.3f} s ({size / 1e6:.1f} MB) [{card}]")
+
+
+def expect_counts(counts, per_unit, units, label, device):
+    """Each kernel of the path launched once per unit where its count
+    says, none other (the CPU rehearsal launches nothing)."""
+    want = {k: per_unit.get(k, 0) * units for k in counts}
+    if device != "cpu" and counts != want:
+        raise AssertionError(f"{label}: launches {counts}, expected {want}")
+
+
+def warm_start_check(torch, cfg, best, loop, create_task, kw):
+    """The stage-2 state right after `_init_task_state` holds the two
+    stage-1 ckpt_best nets bit for bit; a copy with one element changed
+    must be told apart."""
+    init = loop._init_task_state(cfg, create_task(cfg, **kw), 1)
+    pairs = (("heatmap", CLI_PRESETS[0]), ("rot_heatmap", CLI_PRESETS[1]))
+    for key, preset in pairs:
+        bad = differing(init.frozen[key].state_dict(), best[preset])
+        if bad:
+            raise AssertionError(f"warm start: {key} differs from "
+                                 f"{preset}'s ckpt_best in {bad[:3]}")
+    faulty = {k: v.clone() for k, v in best[CLI_PRESETS[0]].items()}
+    name = next(k for k in faulty if k.endswith("conv1.weight"))
+    faulty[name].view(-1)[0] += 1e-3
+    caught = differing(init.frozen["heatmap"].state_dict(), faulty)
+    if caught != [name]:
+        raise AssertionError(f"warm start control not caught: {caught}")
+    print(f"  stage-2 init: frozen nets equal both stage-1 ckpt_best bit "
+          f"for bit ({len(best[CLI_PRESETS[0]])} + "
+          f"{len(best[CLI_PRESETS[1]])} tensors); control ({name} + 1e-3 in "
+          f"one element) caught")
+    del init
+    empty_cache(torch)
+
+
+def frozen_params_check(final, best):
+    """After stage-2 training the frozen nets' parameters are still the
+    stage-1 ckpt_best ones (their running statistics move)."""
+    for key, preset in (("heatmap", CLI_PRESETS[0]),
+                        ("rot_heatmap", CLI_PRESETS[1])):
+        params = dict(final.frozen[key].named_parameters())
+        bad = differing(params, {k: best[preset][k] for k in params})
+        stats = [k for k, v in final.frozen[key].state_dict().items()
+                 if k.endswith("running_mean")
+                 and differing({k: v}, {k: best[preset][k]})]
+        if bad or not stats:
+            raise AssertionError(f"frozen {key}: parameters differ {bad[:3]}"
+                                 f", {len(stats)} running means moved")
+        print(f"    frozen {key}: {len(params)} parameters still the stage-1"
+              f" ckpt_best's bit for bit, {len(stats)} running means moved")
+
+
+def reload_check(torch, cfg, pred, kw):
+    """ckpt_best loaded into a fresh f32 template gives pred_pose.npy's
+    first rows on the test split's first batch; one tensor perturbed
+    after the load must fail the same check."""
+    import dataclasses
+
+    import numpy as np
+    from egotap_tpu_torch.data.pipeline import (make_device_preprocess,
+                                                make_loader)
+    from egotap_tpu_torch.eval.evaluate import to_device
+    from egotap_tpu_torch.train import loop
+    from egotap_tpu_torch.train import state as state_lib
+    from egotap_tpu_torch.train.tasks import create_task
+
+    cfg = dataclasses.replace(cfg, use_amp=False)    # as cli.test runs
+    task = create_task(cfg, **kw)
+    template = loop._init_task_state(cfg, task, 1)
+    state = state_lib.load_checkpoint(cfg.experiment_dir, "best", template,
+                                      restore_opt_state=False)
+    batch = next(iter(make_loader(cfg, "test")))
+    feed = make_device_preprocess(cfg)(to_device(batch, task.device))
+    n = int(batch["mask"].sum())
+    want = pred[:n]
+    scale = float(np.abs(want).max())
+    errs = {}
+    for label in ("reload", "control"):
+        if label == "control":
+            with torch.no_grad():
+                dict(state.net.named_parameters())[CONTROL_PARAM].add_(1.0)
+        pose = task.eval_step(state, feed)["pred_pose"].cpu().numpy()[:n]
+        errs[label] = float(abs(pose - want).max()) / scale
+    print(f"  ckpt_best in a fresh f32 template, first test batch of {n}: "
+          f"max_abs_err {errs['reload']:.3e} of max|pose| {scale:.3f} (tol "
+          f"{RELOAD_TOL:.0e}); control ({CONTROL_PARAM} + 1) "
+          f"{errs['control']:.3e}")
+    if errs["reload"] > RELOAD_TOL:
+        raise AssertionError("ckpt_best reloaded does not give pred_pose.npy")
+    if not errs["control"] > RELOAD_TOL:
+        raise AssertionError("the reload check did not reject a perturbed "
+                             "tensor")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1452,6 +1811,10 @@ def main() -> int:
           "both presets; targets, eval and an f32 step card vs CPU")
     with torch.enable_grad():
         stage1 = phase_train1(torch, card)
+
+    print("phase 8: the train and test CLIs end to end, full width: "
+          "stage 1 (joint, limb), stage 2 warm-started from both, test")
+    cli = phase_cli(torch, card)
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     # launches of each row: the int8 forward's (bf16 compute) for the bf16
     # rows, the f32 forward's for the f32 attention and PU chain rows, and
@@ -1500,6 +1863,10 @@ def main() -> int:
             kernels[-1]["eval_step_launches"] = evaluation[key]
         if (key, dt) in train["backward"]:
             kernels[-1]["backward_ms"] = train["backward"][(key, dt)]
+        # the CLI runs of phase 8 (training in bf16, cli.test in f32)
+        if dt == torch.bfloat16 and key in PER_UNIT["egotap_autoencoder"]:
+            kernels[-1]["cli_launches"] = {run: c[key]
+                                           for run, c in cli.items()}
         # stage 1 trains in bf16: A's launches a step and its backward
         if (key, dt) == ("upsample", torch.bfloat16):
             kernels[-1]["train1_step_launches"] = \

@@ -33,6 +33,10 @@ Params = Dict[str, torch.Tensor]
 B1, B2 = 0.9, 0.999
 
 
+def _cpu_copy(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().to("cpu", copy=True)
+
+
 def make_schedule(cfg: Config, iters_per_epoch: int) -> Callable[[int], float]:
     """lr(step). 'lambda', 'step' and 'exponent' change once per epoch
     (torch schedulers stepped at the end of an epoch); 'cos_anneal*'
@@ -92,6 +96,26 @@ class Optimizer:
         if self.kind != "sgd":
             self.mu = {n: torch.zeros_like(p) for n, p in params.items()}
             self.nu = {n: torch.zeros_like(p) for n, p in params.items()}
+
+    def state_dict(self) -> Dict[str, object]:
+        """``count`` and the moments ``mu`` / ``nu`` by parameter name, as
+        CPU copies (a checkpoint saved on the card loads on the CPU)."""
+        return {"count": self.count,
+                "mu": {n: _cpu_copy(t) for n, t in self.mu.items()},
+                "nu": {n: _cpu_copy(t) for n, t in self.nu.items()}}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, object]) -> None:
+        """Copy a `state_dict` into this optimizer's moments, in place and
+        on their device; the parameter names must be the same."""
+        for name in ("mu", "nu"):
+            mine, theirs = getattr(self, name), state[name]
+            if set(mine) != set(theirs):
+                raise KeyError(f"optimizer {name}: parameter names differ: "
+                               f"{sorted(set(mine) ^ set(theirs))[:5]}")
+            for n, t in theirs.items():
+                mine[n].copy_(t)
+        self.count = int(state["count"])
 
     @torch.no_grad()
     def step(self, params: Params, grads: Dict[str, Optional[torch.Tensor]]

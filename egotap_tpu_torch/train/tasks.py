@@ -45,7 +45,7 @@ from egotap_tpu_torch.serving import (Predictor, build_nets, init_weights,
                                       pose_forward)
 from egotap_tpu_torch.train import losses as L
 from egotap_tpu_torch.train.optim import make_optimizer
-from egotap_tpu_torch.train.state import TrainState
+from egotap_tpu_torch.train.state import TrainState, read_checkpoint
 
 Batch = Dict[str, torch.Tensor]
 StateDict = Dict[str, torch.Tensor]
@@ -106,13 +106,13 @@ class _Task:
         return state, loss_d
 
 
-def _load_heatmap_state(cfg: Config, path: str) -> StateDict:
-    """A trained HeatmapUNet's reference-layout state_dict from a ``.pth``
-    file (`egotap_tpu/train/tasks.py:_load_heatmap_variables`), with the
+def load_heatmap_state(cfg: Config, path: str) -> StateDict:
+    """A trained HeatmapUNet's reference-layout state_dict
+    (`egotap_tpu/train/tasks.py:_load_heatmap_variables`): from a ``.pth``
+    file, or the ``net`` of a port checkpoint directory (``.../ckpt_{tag}``
+    or an experiment directory holding ``ckpt_best``), with the
     reference's rewrite of a ``./log/`` path into ``cfg.log_dir``
-    (base_model.py:140-142). The JAX package also reads its own Orbax
-    checkpoint directories; the port's checkpoint format is not ported
-    yet (ROADMAP.md section 1, item 3, checkpoint I/O)."""
+    (base_model.py:140-142)."""
     if path.startswith("./log/"):
         path = os.path.join(cfg.log_dir, path[len("./log/"):])
     if os.path.isfile(path):
@@ -120,16 +120,15 @@ def _load_heatmap_state(cfg: Config, path: str) -> StateDict:
     ckpt = path if os.path.basename(path).startswith("ckpt_") \
         else os.path.join(path, "ckpt_best")
     if os.path.isdir(ckpt):
-        raise NotImplementedError(
-            f"{ckpt}: checkpoint directories are not ported yet (ROADMAP.md "
-            "section 1, item 3, checkpoint I/O); give a .pth file")
+        return read_checkpoint(ckpt)["net"]
     raise FileNotFoundError(f"no heatmap checkpoint at {path}")
 
 
 class HeatmapTask(_Task):
     """Stage-1 heatmap estimator: one HeatmapUNet, trained and evaluated."""
 
-    eval_key = "mse_heatmap"
+    name = "Heatmap Shared model"    # the training loop's watchdog reads it
+    eval_key = "mse_heatmap"         # the metric that picks `best`
 
     def __init__(self, cfg: Config, device="cuda"):
         super().__init__(cfg, device)
@@ -164,7 +163,7 @@ class HeatmapTask(_Task):
         if cfg.init_ImageNet and cfg.imagenet_backbone:
             load_imagenet_backbone(net, cfg.imagenet_backbone)
         if cfg.path_to_trained_heatmap:
-            net.load_state_dict(_load_heatmap_state(
+            net.load_state_dict(load_heatmap_state(
                 cfg, cfg.path_to_trained_heatmap), strict=True)
         return TrainState.create(
             net, {}, make_optimizer(cfg, iters_per_epoch, stage1=True),
@@ -232,6 +231,9 @@ class HeatmapTask(_Task):
 
 class LifterTask(_Task):
     """Stage-2 pose estimator: frozen heatmap nets + EgoTAP lifter."""
+
+    name = "EgoTAP AutoEncoder model"
+    eval_key = "mpjpe"
 
     def __init__(self, cfg: Config, device="cuda"):
         super().__init__(cfg, device)

@@ -71,18 +71,11 @@ def test_training_defaults_match_jax():
 
 
 def test_stage2_preset_matches_jax():
-    """The port's egotap_unrealego preset is the JAX one less the keys the
-    port has no field for (logging, the always-on patched ViT lifter) or
-    does not read in stage 2 (init_ImageNet, path_to_trained_heatmap:
-    `LifterTask.init_state` takes the frozen nets from its caller)."""
+    """The port's egotap_unrealego preset is the JAX one, key for key, and
+    an unknown preset name raises."""
     from egotap_tpu.core.config import PRESETS as JAX_PRESETS
     from egotap_tpu_torch.core.config import PRESETS
-    ref = JAX_PRESETS["egotap_unrealego"]
-    ours = PRESETS["egotap_unrealego"]
-    assert set(ref) - set(ours) == {"experiment_name", "patched_heatmap_ae",
-                                    "init_ImageNet",
-                                    "path_to_trained_heatmap"}
-    assert ours == {k: ref[k] for k in ours}
+    assert PRESETS["egotap_unrealego"] == JAX_PRESETS["egotap_unrealego"]
     cfg = Config.from_preset("egotap_unrealego", batch_size=4)
     assert cfg.batch_size == 4 and cfg.optimizer_type == "AdamW"
     assert cfg.num_joints_out == 16 and cfg.estimate_head
@@ -96,17 +89,74 @@ STAGE1 = ["unrealego_heatmap_joint", "unrealego_heatmap_limb",
 
 @pytest.mark.parametrize("preset", STAGE1)
 def test_stage1_presets_match_jax(preset):
-    """The four stage-1 presets are the JAX ones less the keys the port
-    has no field for yet (logging, the training loop's auto-restart), and
-    derive the same configuration."""
+    """The four stage-1 presets are the JAX ones, key for key, and derive
+    the same configuration."""
     from egotap_tpu.core.config import PRESETS as JAX_PRESETS
     from egotap_tpu_torch.core.config import PRESETS
     ref, ours = JAX_PRESETS[preset], PRESETS[preset]
-    assert set(ref) - set(ours) == {"experiment_name", "auto_restart"}
-    assert ours == {k: ref[k] for k in ours}
+    assert ours == ref
     cfg = Config.from_preset(preset)
     want = JaxConfig(**ref).derive()
     for name in DERIVED + TRAINING + ("joint_preset", "num_heatmap",
                                       "num_rot_heatmap", "heatmap_type"):
         assert getattr(cfg, name) == getattr(want, name), name
     assert cfg.model == "heatmap_shared" and cfg.init_ImageNet
+
+
+def test_fields_match_jax():
+    """The same fields, in the same order, with the same defaults, and the
+    same six presets."""
+    import dataclasses
+
+    from egotap_tpu.core.config import PRESETS as JAX_PRESETS
+    from egotap_tpu_torch.core.config import PRESETS
+    assert dataclasses.asdict(Config()) == dataclasses.asdict(JaxConfig())
+    assert [f.name for f in dataclasses.fields(Config)] == \
+        [f.name for f in dataclasses.fields(JaxConfig)]
+    assert PRESETS == JAX_PRESETS and len(PRESETS) == 6
+
+
+ARGVS = [[]] + [["--preset", p] for p in
+                ("unrealego_heatmap_joint", "unrealego_heatmap_limb",
+                 "egotap_unrealego", "egotap_egocap",
+                 "egocap_heatmap_joint", "egocap_heatmap_limb")] + [
+    # a bool, a tuple, an Optional[int], an Optional[str], a float
+    ["--use_amp", "true", "--load_size_heatmap", "32", "32",
+     "--watchdog_check_iters", "100", "--profile_dir", "/tmp/p",
+     "--lr", "3e-4", "--metadata_dir", "a", "b"],
+    # flags equal to their dataclass defaults override the preset's values
+    ["--preset", "egotap_unrealego", "--use_amp", "false",
+     "--batch_size", "16", "--lr_policy", "lambda"],
+    ["--preset", "unrealego_heatmap_limb", "--auto_restart", "no",
+     "--experiment_name", "experiment", "--joint_preset", "EgoCap"],
+]
+
+
+@pytest.mark.parametrize("argv", ARGVS, ids=lambda a: " ".join(a) or "none")
+def test_from_args_matches_jax(argv):
+    """`Config.from_args`: defaults < preset < the flags passed, with the
+    JAX package's parsing of bools, tuples and Optional fields."""
+    import dataclasses
+    ours, ref = Config.from_args(argv), JaxConfig.from_args(argv)
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    assert (ours.experiment_dir, ours.results_dir) == \
+        (ref.experiment_dir, ref.results_dir)
+
+
+def test_from_args_argument_preset_and_errors():
+    ours = Config.from_args(["--batch_size", "8"], preset="egotap_egocap")
+    assert ours.batch_size == 8 and ours.joint_preset == "EgoCap"
+    assert not ours.estimate_head
+    with pytest.raises(SystemExit):
+        Config.from_args(["--preset", "no_such_preset"])
+
+
+@pytest.mark.parametrize("argv", [ARGVS[3], ARGVS[7]],
+                         ids=["egotap_unrealego", "flags"])
+def test_save_matches_jax(argv, tmp_path):
+    """`save` writes the same option text and JSON as the JAX package."""
+    Config.from_args(argv).save(str(tmp_path / "ours" / "train_opt.txt"))
+    JaxConfig.from_args(argv).save(str(tmp_path / "ref" / "train_opt.txt"))
+    for name in ("train_opt.txt", "train_opt.json"):
+        assert (tmp_path / "ours" / name).read_text() == \
+            (tmp_path / "ref" / name).read_text(), name

@@ -20,6 +20,7 @@ from egotap_tpu_torch.models.initializers import (apply_reference_init,
                                                   load_imagenet_backbone)
 from egotap_tpu_torch.models.resnet import ResNetEncoder
 from egotap_tpu_torch.serving import init_weights
+from egotap_tpu_torch.train.state import save_checkpoint
 from egotap_tpu_torch.train.tasks import HeatmapTask
 from tests.test_torch_compat import heatmap_vars
 from tests.test_torch_heatmap_task import (check_eval_step,
@@ -119,8 +120,8 @@ def test_imagenet_backbone_matches_jax(tmp_path):
 
 def test_warm_start_from_pth(tmp_path):
     """path_to_trained_heatmap: a HeatmapUNet ``.pth`` under ``./log/``
-    (rewritten into log_dir) replaces the init, as JAX reads it; a
-    checkpoint directory is not ported yet and raises."""
+    (rewritten into log_dir) replaces the init, as JAX reads it; so does
+    an experiment directory's port checkpoint ``ckpt_best``."""
     src = HeatmapUNet(30)
     init_weights(src, torch.Generator().manual_seed(4))
     (tmp_path / "log" / "exp").mkdir(parents=True)
@@ -135,11 +136,13 @@ def test_warm_start_from_pth(tmp_path):
         assert torch.equal(got[k], v), k
         if ".fc." not in k and not k.endswith("num_batches_tracked"):
             assert torch.equal(got[k], want[k]), k
-    (tmp_path / "log" / "exp" / "ckpt_best").mkdir()
+    trained = HeatmapTask(cfg, device="cpu").init_state(3, 1)
+    save_checkpoint(str(tmp_path / "log" / "exp"), "best", trained)
     cfg, _ = configs(PRESET, log_dir=str(tmp_path / "log"),
                      path_to_trained_heatmap="./log/exp")
-    with pytest.raises(NotImplementedError, match="checkpoint I/O"):
-        HeatmapTask(cfg, device="cpu").init_state(0, 1)
+    got = HeatmapTask(cfg, device="cpu").init_state(0, 1).net.state_dict()
+    for k, v in trained.net.state_dict().items():
+        assert torch.equal(got[k], v), k
     cfg, _ = configs(PRESET, path_to_trained_heatmap=str(tmp_path / "none"))
     with pytest.raises(FileNotFoundError):
         HeatmapTask(cfg, device="cpu").init_state(0, 1)
