@@ -97,8 +97,10 @@ Exits non-zero, printing no result, when there is no card. Phases:
    caught), and its frozen parameters still equal after training;
    ``ckpt_best`` in a fresh f32 template giving pred_pose.npy's rows on
    the test split's first batch within 1e-6 of their max (one tensor
-   perturbed rejected). Printed: each run's wall time, each epoch's time
-   and its time waiting on the loader, and `evaluate`'s pairs/s.
+   perturbed rejected). Printed: each run's wall time; each epoch's time
+   and its parts from the run's summary (the step loop, its time waiting
+   on the loader as a share of the loop and of the epoch, validation, the
+   checkpoint writes); `evaluate`'s pairs/s in `cli.test`.
 9. One JSON line with every kernel's numbers (with each bf16 kernel's
    launches per training and eval step, A's per stage-1 step, the
    backward recompute time a launch of A (stage 1), B and C, and the
@@ -1444,24 +1446,6 @@ RELOAD_TOL = 1e-6
 CONTROL_PARAM = "pose_mlp.pose_fcs.0.bias"
 
 
-class Tee:
-    """Standard output passed through and kept, to read what a CLI
-    prints."""
-
-    def __init__(self, out):
-        self.out, self.parts = out, []
-
-    def write(self, text):
-        self.parts.append(text)
-        return self.out.write(text)
-
-    def flush(self):
-        self.out.flush()
-
-    def text(self):
-        return "".join(self.parts)
-
-
 def empty_cache(torch):
     """Wait for the card and free its cached blocks (no-op without one,
     in a CPU rehearsal)."""
@@ -1472,15 +1456,12 @@ def empty_cache(torch):
 
 def run_cli(torch, main, argv, **kw):
     """``main(argv, **kw)`` with the launch counters zeroed just before:
-    (wall s, launch counts, what it printed)."""
-    import contextlib
-    tee = Tee(sys.stdout)
+    (wall s, launch counts, what it returned)."""
     reset_counts()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(tee):
-        main(argv, **kw)
+    result = main(argv, **kw)
     empty_cache(torch)
-    return time.perf_counter() - t0, read_counts(), tee.text()
+    return time.perf_counter() - t0, read_counts(), result
 
 
 def differing(got, want):
@@ -1547,7 +1528,6 @@ def phase_cli(torch, card, device=None, image_size=64, frames=CLI_FRAMES):
     module docstring, phase 8). ``device`` is passed on to the CLIs when
     given (a rehearsal on the CPU); the card is their default."""
     import os
-    import re
     import tempfile
 
     import numpy as np
@@ -1599,20 +1579,25 @@ def phase_cli(torch, card, device=None, image_size=64, frames=CLI_FRAMES):
             expect_counts(counts, PER_UNIT[cfg.model], units, preset, device)
             epochs = check_run_artifacts(cfg)
             for e, t in sorted(epochs.items()):
-                print(f"    epoch {e}: {t['epoch_s']:.3f} s, waiting on the "
-                      f"loader {t['loader_wait_s']:.3f} s (share "
-                      f"{t['loader_wait_s'] / t['epoch_s']:.3f}) [{card}]")
+                print(f"    epoch {e}: {t['epoch_s']:.3f} s = step loop "
+                      f"{t['loop_s']:.3f} s (waiting on the loader "
+                      f"{t['loader_wait_s']:.3f} s, share of the loop "
+                      f"{t['loader_wait_s'] / t['loop_s']:.3f}, of the "
+                      f"epoch {t['loader_wait_s'] / t['epoch_s']:.3f}) + "
+                      f"validation {t['val_s']:.3f} s + checkpoint writes "
+                      f"{t['ckpt_s']:.3f} s + the rest [{card}]")
             final = states[-1]
             off = [k for k, t in state_tensors(final).items()
                    if t.device.type != torch.device(dev).type]
             if off:
                 raise AssertionError(f"{preset}: {len(off)} tensors not on "
                                      f"{dev}, e.g. {off[:3]}")
+            size = os.path.getsize(os.path.join(
+                cfg.experiment_dir, "ckpt_best", state_lib.CKPT_FILE))
             print(f"    all {len(state_tensors(final))} tensors of the "
                   f"final state on {dev}; checkpoints "
-                  f"{sorted(os.listdir(cfg.experiment_dir))}")
-            epoch_parts(torch, cfg, final, os.path.join(tmp, "probe"), card,
-                        kw)
+                  f"{sorted(os.listdir(cfg.experiment_dir))}, "
+                  f"{size / 1e6:.1f} MB each")
             if cfg.model == "heatmap_shared":
                 best[preset] = state_lib.read_checkpoint(os.path.join(
                     cfg.experiment_dir, "ckpt_best"))["net"]
@@ -1622,16 +1607,16 @@ def phase_cli(torch, card, device=None, image_size=64, frames=CLI_FRAMES):
             empty_cache(torch)
 
         argv = ["--preset", CLI_PRESETS[2]] + common
-        wall, counts, out = run_cli(torch, cli_test.main, argv, **kw)
+        wall, counts, (_, pps) = run_cli(torch, cli_test.main, argv, **kw)
         launches["cli.test"] = counts
         cfg = Config.from_args(argv)
         units = cli_units(cfg, make_loader, 0)
-        pps = float(re.search(r"throughput: ([0-9.]+) pairs/s",
-                              out).group(1))
+        n_test = len(make_loader(cfg, "test"))
+        timed = (f"timed over the {n_test - 1} test batch(es) after the "
+                 f"first" if n_test > 1 else "its one test batch timed")
         print(f"  cli.test: returned after {wall:.2f} s; launches {counts} "
               f"over {units} eval batches; evaluate {pps:.1f} pairs/s "
-              f"(f32, batch {cfg.batch_size}, timed after the first batch) "
-              f"[{card}]")
+              f"(f32, batch {cfg.batch_size}, {timed}) [{card}]")
         expect_counts(counts, PER_UNIT[cfg.model], units, "cli.test", device)
         res = cfg.results_dir
         n = 2 * frames
@@ -1647,27 +1632,6 @@ def phase_cli(torch, card, device=None, image_size=64, frames=CLI_FRAMES):
               f"{len(cats.splitlines())} lines, pred_pose.npy {pred.shape}")
         reload_check(torch, cfg, pred, kw)
     return launches
-
-
-def epoch_parts(torch, cfg, state, probe_dir, card, kw):
-    """What an epoch spends besides its steps, timed apart on the run's
-    final state: one validation pass (`evaluate`) and one checkpoint
-    write (`save_checkpoint`, as for ``best`` and each epoch)."""
-    import os
-    from egotap_tpu_torch.eval.evaluate import evaluate
-    from egotap_tpu_torch.train import state as state_lib
-    from egotap_tpu_torch.train.tasks import create_task
-    task = create_task(cfg, **kw)
-    t0 = time.perf_counter()
-    evaluate(cfg, task, state, mode="validation", **kw)
-    val_s = time.perf_counter() - t0
-    empty_cache(torch)
-    t0 = time.perf_counter()
-    path = state_lib.save_checkpoint(probe_dir, cfg.experiment_name, state)
-    ckpt_s = time.perf_counter() - t0
-    size = os.path.getsize(os.path.join(path, state_lib.CKPT_FILE))
-    print(f"    epoch parts: a validation pass {val_s:.3f} s, a checkpoint "
-          f"write {ckpt_s:.3f} s ({size / 1e6:.1f} MB) [{card}]")
 
 
 def expect_counts(counts, per_unit, units, label, device):

@@ -8,13 +8,15 @@ Loads the ``best`` checkpoint, evaluates the whole test split in f32
 (per-frame stats and pose dumps) and each of the 30 motion categories,
 and writes ``detail_result.txt`` and ``categorical_result.txt`` under
 ``{result_dir}/{experiment_name}``. Runs on the CUDA card; from Python,
-``main(argv, device="cpu")`` runs on the CPU.
+``main(argv, device="cpu")`` runs on the CPU. `main` returns the test
+split's metrics and `evaluate`'s pairs/s.
 """
 
 from __future__ import annotations
 
 import os
 import sys
+from typing import Dict, Tuple
 
 from egotap_tpu_torch.core.config import Config
 from egotap_tpu_torch.core.device import resolve_device
@@ -29,7 +31,7 @@ from egotap_tpu_torch.train.loop import _init_task_state
 from egotap_tpu_torch.train.tasks import create_task
 
 
-def main(argv=None, device="cuda") -> None:
+def main(argv=None, device="cuda") -> Tuple[Dict[str, float], float]:
     dev = resolve_device(device)
     cfg = Config.from_args(argv)
     cfg.is_train = False
@@ -69,6 +71,7 @@ def main(argv=None, device="cuda") -> None:
               " ".join(f"{k}: {v}" for k, v in cat_metrics.items()))
 
     print("-----------------All Process Finished-----------------")
+    return metrics, pps
 
 
 if __name__ == "__main__":

@@ -17,8 +17,11 @@ train.py:63-287):
 Host to card: the loader's numpy batch is copied to the device, where
 `make_device_preprocess` renders the targets. Losses stay on the device
 and are read back every ``loss_sync_every`` steps, one ``.item()`` a
-loss. Each epoch logs its wall time and the time spent waiting on the
-loader (``Time/epoch_s``, ``Time/loader_wait_s`` in the summary).
+loss. Each epoch logs, in seconds, under ``Time/`` in the summary: its
+wall time with validation and every checkpoint write (``epoch_s``), the
+step loop (``loop_s``) and its time waiting on the loader
+(``loader_wait_s``), the validation pass (``val_s``), and the checkpoint
+writes, ``best`` and the epoch's own (``ckpt_s``).
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ from egotap_tpu_torch.eval.evaluate import evaluate, to_device
 from egotap_tpu_torch.train import state as state_lib
 from egotap_tpu_torch.train.tasks import create_task, load_heatmap_state
 from egotap_tpu_torch.utils.logging import MetricWriter
-from egotap_tpu_torch.utils.profiling import maybe_trace, step_annotation
+from egotap_tpu_torch.utils.profiling import step_annotation, trace
 
 StateDict = Dict[str, object]
 
@@ -128,7 +131,10 @@ def train_main(cfg: Config, epoch_callback=None, device="cuda") -> bool:
                           clear=(cfg.epoch_count == 1))
 
     def save_ckpt(tag):
+        nonlocal ckpt_s
+        t = time.perf_counter()
         state_lib.save_checkpoint(cfg.experiment_dir, tag, state)
+        ckpt_s += time.perf_counter() - t
 
     # dataset provenance copy (reference record_dataset_information,
     # train.py:36-47)
@@ -156,7 +162,7 @@ def train_main(cfg: Config, epoch_callback=None, device="cuda") -> bool:
         epoch_losses: Dict[str, list] = {}
         val_metrics: Dict[str, float] = {}
         t0 = time.perf_counter()
-        loader_wait = 0.0
+        loader_wait = val_s = ckpt_s = 0.0  # ckpt_s: `save_ckpt`'s writes
         pending = []  # (i, step, curr_itr, device loss dict)
         tracing = contextlib.ExitStack()
 
@@ -197,7 +203,7 @@ def train_main(cfg: Config, epoch_callback=None, device="cuda") -> bool:
                 if batch is None:
                     break
                 if cfg.profile_dir and epoch == cfg.epoch_count and i == 2:
-                    tracing.enter_context(maybe_trace(cfg.profile_dir))
+                    tracing.enter_context(trace(cfg.profile_dir))
                 step = (epoch - 1) * iters_per_epoch + i
                 with step_annotation("train", step):
                     state, losses = task.train_step(
@@ -211,6 +217,7 @@ def train_main(cfg: Config, epoch_callback=None, device="cuda") -> bool:
                     break
             if not (restart_epoch or abort is not None or stall):
                 flush_losses()
+        loop_s = time.perf_counter() - t0
         if stall:
             writer.close()
             return False
@@ -233,8 +240,10 @@ def train_main(cfg: Config, epoch_callback=None, device="cuda") -> bool:
 
         if epoch % cfg.val_epoch_freq == 0:
             print(f"-----------------Validation Epoch: {epoch}--------------")
+            t_val = time.perf_counter()
             metrics, _, _ = evaluate(cfg, task, state, mode="validation",
                                      device=dev)
+            val_s = time.perf_counter() - t_val
             writer.scalars("Validation", metrics, epoch)
             print(" ".join(f"{k}: {v:.4E}" for k, v in metrics.items()))
             val_metrics = metrics
@@ -243,18 +252,20 @@ def train_main(cfg: Config, epoch_callback=None, device="cuda") -> bool:
                 best_metrics = metrics
                 save_ckpt("best")
 
+        if epoch % cfg.save_epoch_freq == 0:
+            save_ckpt(epoch)
+
         epoch_s = time.perf_counter() - t0
-        writer.scalars("Time", {"epoch_s": epoch_s,
-                                "loader_wait_s": loader_wait}, epoch)
+        writer.scalars("Time", {"epoch_s": epoch_s, "loop_s": loop_s,
+                                "loader_wait_s": loader_wait,
+                                "val_s": val_s, "ckpt_s": ckpt_s}, epoch)
         if epoch % cfg.print_epoch_freq == 0:
             means = {k: float(np.mean(v)) for k, v in epoch_losses.items()}
             writer.scalars("Train", means, epoch)
-            print(f"(epoch: {epoch}, time: {epoch_s:.3f}s, loader wait: "
-                  f"{loader_wait:.3f}s) "
+            print(f"(epoch: {epoch}, time: {epoch_s:.3f}s, step loop: "
+                  f"{loop_s:.3f}s, loader wait: {loader_wait:.3f}s, "
+                  f"validation: {val_s:.3f}s, checkpoints: {ckpt_s:.3f}s) "
                   + " ".join(f"{k}: {v:.3e}" for k, v in means.items()))
-
-        if epoch % cfg.save_epoch_freq == 0:
-            save_ckpt(epoch)
 
         total_itr += iters_per_epoch
         print(f"dir name: {cfg.experiment_name}")

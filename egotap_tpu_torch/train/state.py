@@ -65,10 +65,9 @@ def _cpu_state_dict(module: nn.Module) -> Dict[str, torch.Tensor]:
             for k, v in module.state_dict().items()}
 
 
-def save_checkpoint(experiment_dir: str, tag, state: TrainState,
-                    keep_previous: bool = False) -> str:
+def save_checkpoint(experiment_dir: str, tag, state: TrainState) -> str:
     """Write ``state`` as ``ckpt_{tag}``; saving epoch N > 1 removes
-    ``ckpt_{N-1}`` unless ``keep_previous``. Returns the directory."""
+    ``ckpt_{N-1}``. Returns the directory."""
     path = _ckpt_dir(experiment_dir, tag)
     os.makedirs(path, exist_ok=True)
     payload = {"step": int(state.step),
@@ -79,7 +78,7 @@ def save_checkpoint(experiment_dir: str, tag, state: TrainState,
     target = os.path.join(path, CKPT_FILE)
     torch.save(payload, target + ".tmp")
     os.replace(target + ".tmp", target)
-    if isinstance(tag, int) and tag > 1 and not keep_previous:
+    if isinstance(tag, int) and tag > 1:
         prev = _ckpt_dir(experiment_dir, tag - 1)
         if os.path.exists(prev):
             shutil.rmtree(prev)

@@ -1,7 +1,7 @@
 """Profiling hooks on `torch.profiler` (counterpart of
 `egotap_tpu/utils/profiling.py`, which wraps `jax.profiler`).
 
-`maybe_trace` records host and card activity over a region and writes a
+`trace` records host and card activity over a region and writes a
 Chrome trace (``trace.json``, open it in chrome://tracing or Perfetto)
 into ``profile_dir``; `step_annotation` names a training step's range in
 that trace.
@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import contextlib
 import os
-from typing import Iterator, Optional
+from typing import Iterator
 
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
@@ -20,13 +20,8 @@ TRACE_FILE = "trace.json"
 
 
 @contextlib.contextmanager
-def maybe_trace(profile_dir: Optional[str], enabled: bool = True
-                ) -> Iterator[None]:
-    """Trace the region into ``profile_dir/trace.json`` when a directory
-    is set (and ``enabled``); otherwise do nothing."""
-    if not (profile_dir and enabled):
-        yield
-        return
+def trace(profile_dir: str) -> Iterator[None]:
+    """Trace the region into ``profile_dir/trace.json``."""
     os.makedirs(profile_dir, exist_ok=True)
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():

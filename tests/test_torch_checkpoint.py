@@ -149,16 +149,14 @@ def test_epoch_checkpoints_replace_the_previous(tmp_path):
         state_lib.save_checkpoint(exp, epoch, state)
     assert not state_lib.checkpoint_exists(exp, 1)
     assert state_lib.checkpoint_exists(exp, 2)
-    state_lib.save_checkpoint(exp, 3, state, keep_previous=True)
-    assert state_lib.checkpoint_exists(exp, 2)
     for tag in ("nan", "inf", "best"):
         state_lib.save_checkpoint(exp, tag, state)
-    assert sorted(os.listdir(exp)) == ["ckpt_2", "ckpt_3", "ckpt_best",
-                                       "ckpt_inf", "ckpt_nan"]
-    assert os.listdir(os.path.join(exp, "ckpt_3")) == [state_lib.CKPT_FILE]
-    assert not state_lib.checkpoint_exists(exp, 4)
-    os.makedirs(os.path.join(exp, "ckpt_4"))       # no file: not a ckpt
-    assert not state_lib.checkpoint_exists(exp, 4)
+    assert sorted(os.listdir(exp)) == ["ckpt_2", "ckpt_best", "ckpt_inf",
+                                       "ckpt_nan"]
+    assert os.listdir(os.path.join(exp, "ckpt_2")) == [state_lib.CKPT_FILE]
+    assert not state_lib.checkpoint_exists(exp, 3)
+    os.makedirs(os.path.join(exp, "ckpt_3"))       # no file: not a ckpt
+    assert not state_lib.checkpoint_exists(exp, 3)
     saved = state_lib.read_checkpoint(os.path.join(exp, "ckpt_2"))
     assert all(t.device.type == "cpu" for t in saved["net"].values())
 

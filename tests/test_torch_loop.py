@@ -98,7 +98,17 @@ def test_train_main_heatmap(root, tmp_path):
     tags = [json.loads(line)["tag"] for line in
             open(os.path.join(exp, "summary", "metrics.jsonl"))]
     assert tags.count("Batch/heatmap_left") == 4
-    assert tags.count("Time/loader_wait_s") == tags.count("Time/epoch_s") == 2
+    for part in ("epoch_s", "loop_s", "loader_wait_s", "val_s", "ckpt_s"):
+        assert tags.count(f"Time/{part}") == 2, part
+    times = {}
+    for line in open(os.path.join(exp, "summary", "metrics.jsonl")):
+        rec = json.loads(line)
+        if rec["tag"].startswith("Time/"):
+            times.setdefault(rec["step"], {})[rec["tag"][5:]] = rec["value"]
+    for t in times.values():   # the epoch's span holds its parts
+        assert t["loader_wait_s"] <= t["loop_s"]
+        assert t["ckpt_s"] > 0 and t["val_s"] > 0
+        assert t["loop_s"] + t["val_s"] + t["ckpt_s"] <= t["epoch_s"]
     assert "Validation/mse_heatmap" in tags
     assert state_lib.read_checkpoint(os.path.join(exp, "ckpt_2"))["step"] == 4
 
