@@ -101,11 +101,41 @@ Exits non-zero, printing no result, when there is no card. Phases:
    and its parts from the run's summary (the step loop, its time waiting
    on the loader as a share of the loop and of the epoch, validation, the
    checkpoint writes); `evaluate`'s pairs/s in `cli.test`.
-9. One JSON line with every kernel's numbers (with each bf16 kernel's
+9. The lifter's other skeleton layers and the learned-LR optimizers at
+   full width. (a) A bf16 `Predictor` with skel_layer "LSTM" (the
+   Config default: a tree walk, no kernel C) serves 3 requests of (32,
+   2, 256, 256, 3), launches A 6, B 3, C 0 a forward; then the lifter
+   alone, on that Predictor's bf16 heatmap stack, for each of LSTM,
+   LSTMSplit, LSTMNoRel, None, NoneNoRel, the PU tree walk and a 3-layer
+   PU chain (both walked in plain PyTorch): the median time of 5 bf16
+   forwards at batch 32 with B 3, C 0 launches each, and an f32 pose of
+   batch 2 card vs CPU within 1e-4 of its max; the LSTM walked as a
+   chain (each joint from the previous joint's state) must fall outside
+   that limit. (b) `LifterTask.train_step` with the LSTM lifter (the
+   egotap_unrealego preset otherwise: bf16 amp, cos_anneal_warmup over
+   epochs of 4 steps, batch 32) under DAdam, Prodigy, DSGD and
+   DAdaGrad, 12 steps on one fixed batch from a seeded `init_state`:
+   the median CUDA-event time of the last 10 and pairs/s, launches A 6,
+   B 3, C 0 a step, losses finite, the LSTM's weight_hh_l1 moved, the
+   estimate d of each step and the step's own estimate d_hat, of which
+   d must end above its initial 1e-6 or d_hat rise over the run; then
+   one f32 Prodigy step of batch 2 ('lambda' schedule,
+   so that it moves the parameters) card vs CPU: losses (rtol 1e-4),
+   the lifter's gradient (1e-3 relative L2), the parameters after the
+   update (1e-5 of their max). (c) `cli.train --preset egotap_unrealego
+   --skel_layer LSTM --optimizer_type DAdam` (2 epochs) on phase 8's
+   dataset, warm-started from phase 8's stage-1 ckpt_best (the preset's
+   lr 0 at step 0 is DAdam's zero-denominator step), then `cli.test`:
+   launches A 6, B 3, C 0 a step or eval batch, finite epoch losses,
+   the run's artifacts, DAdam's state in ckpt_best, and ckpt_best in a
+   fresh f32 template giving pred_pose.npy's rows within 1e-6 of their
+   max (one tensor perturbed rejected).
+10. One JSON line with every kernel's numbers (with each bf16 kernel's
    launches per training and eval step, A's per stage-1 step, the
-   backward recompute time a launch of A (stage 1), B and C, and the
-   launches of A, B and C in each CLI run of phase 8), then the result
-   line.
+   backward recompute time a launch of A (stage 1), B and C, the
+   launches of A, B and C in each CLI run of phase 8, and each bf16
+   kernel's launches per LSTM training step and in the LSTM CLI runs of
+   phase 9), then the result line.
 """
 
 import json
@@ -113,6 +143,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
@@ -628,10 +659,11 @@ PER_FORWARD = {"upsample": 6, "attention": 3, "pu_chain": 1,
                "attention_unpacked": 0, "fused_layer1": 0}
 
 
-def serve(torch, pred, rgb_dev, label, card, requests=3):
+def serve(torch, pred, rgb_dev, label, card, requests=3,
+          per_forward=PER_FORWARD):
     """Warm up, then serve ``requests`` batches with the launch counters
-    zeroed just before; checks the counts and the output. Returns (counts,
-    last output)."""
+    zeroed just before; checks the counts (``per_forward`` a request) and
+    the output. Returns (counts, last output)."""
     import numpy as np
     pred._forward(rgb_dev)                      # warm-up (cuDNN plans)
     torch.cuda.synchronize()
@@ -644,9 +676,9 @@ def serve(torch, pred, rgb_dev, label, card, requests=3):
     counts = read_counts()
     print(f"  {label}: launches over {requests} forwards: {counts}")
     for n, c in counts.items():
-        if c != requests * PER_FORWARD[n]:
+        if c != requests * per_forward[n]:
             raise AssertionError(f"{label}: {n} launched {c} times, "
-                                 f"expected {requests * PER_FORWARD[n]}")
+                                 f"expected {requests * per_forward[n]}")
     batch = rgb_dev.shape[0]
     if out.shape != (batch, 16, 3) or not np.isfinite(out).all():
         raise AssertionError(f"{label}: bad output {out.shape}")
@@ -1478,9 +1510,9 @@ def state_tensors(state):
     out = {f"net.{k}": v for k, v in state.net.state_dict().items()}
     for key, net in state.frozen.items():
         out.update({f"{key}.{k}": v for k, v in net.state_dict().items()})
-    for name in ("mu", "nu"):
-        out.update({f"opt.{name}.{k}": v
-                    for k, v in getattr(state.opt, name).items()})
+    for name, tree in state.opt.trees.items():
+        out.update({f"opt.{name}.{k}": v for k, v in tree.items()})
+    out.update({f"opt.{k}": v for k, v in state.opt.scalars.items()})
     return out
 
 
@@ -1523,12 +1555,28 @@ def check_run_artifacts(cfg):
     return epochs
 
 
-def phase_cli(torch, card, device=None, image_size=64, frames=CLI_FRAMES):
-    """The train and test CLIs end to end on a synthetic dataset (see the
-    module docstring, phase 8). ``device`` is passed on to the CLIs when
-    given (a rehearsal on the CPU); the card is their default."""
+def cli_common(tmp, image_size=64):
+    """The flags every CLI run of phases 8 and 9 passes: the synthetic
+    dataset and the log and result directories under ``tmp``, two
+    epochs."""
     import os
-    import tempfile
+    return ["--data_dir", os.path.join(tmp, "data"), "--default_data_path",
+            "./SyntheticData", "--load_size_heatmap", str(image_size),
+            str(image_size), "--niter", "1", "--niter_decay", "1",
+            "--log_dir", os.path.join(tmp, "log"),
+            "--result_dir", os.path.join(tmp, "results"),
+            # a NaN at epoch 1 ends the run (the artifact checks then
+            # fail) instead of restarting it without end
+            "--auto_terminate", "true"]
+
+
+def phase_cli(torch, card, tmp, device=None, image_size=64,
+              frames=CLI_FRAMES):
+    """The train and test CLIs end to end on a synthetic dataset written
+    under ``tmp`` (see the module docstring, phase 8). ``device`` is
+    passed on to the CLIs when given (a rehearsal on the CPU); the card
+    is their default."""
+    import os
 
     import numpy as np
     from egotap_tpu_torch.cli import test as cli_test
@@ -1543,94 +1591,86 @@ def phase_cli(torch, card, device=None, image_size=64, frames=CLI_FRAMES):
     kw = {} if device is None else {"device": device}
     dev = device or "cuda"
     launches = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        data = os.path.join(tmp, "data")
-        t0 = time.perf_counter()
-        generate_dataset(data, "UnrealEgo", num_sequences=2,
-                         frames_per_seq=frames, image_size=image_size)
-        size = sum(os.path.getsize(os.path.join(d, f))
-                   for d, _, fs in os.walk(data) for f in fs)
-        print(f"  synthetic dataset: 3 splits of 2 x {frames} frames, "
-              f"{4 * image_size} x {4 * image_size} RGB, {size / 1e6:.1f} MB, "
-              f"written in {time.perf_counter() - t0:.2f} s")
-        common = ["--data_dir", data, "--default_data_path",
-                  "./SyntheticData", "--load_size_heatmap", str(image_size),
-                  str(image_size), "--niter", "1", "--niter_decay", "1",
-                  "--log_dir", os.path.join(tmp, "log"),
-                  "--result_dir", os.path.join(tmp, "results"),
-                  # a NaN at epoch 1 ends the run (the artifact checks then
-                  # fail) instead of restarting it without end
-                  "--auto_terminate", "true"]
-        best = {}
-        for preset in CLI_PRESETS:
-            argv = ["--preset", preset] + common
-            cfg = Config.from_args(argv)
-            if preset == CLI_PRESETS[2]:
-                warm_start_check(torch, cfg, best, loop, create_task, kw)
-            states = []
-            wall, counts, _ = run_cli(
-                torch, cli_train.main, argv,
-                epoch_callback=lambda r: states.append(r["state"]), **kw)
-            launches[preset] = counts
-            units = cli_units(cfg, make_loader, 2)
-            print(f"  {preset}: returned after {wall:.2f} s; launches "
-                  f"{counts} over {units} training steps and eval batches "
-                  f"(batch {cfg.batch_size})")
-            expect_counts(counts, PER_UNIT[cfg.model], units, preset, device)
-            epochs = check_run_artifacts(cfg)
-            for e, t in sorted(epochs.items()):
-                print(f"    epoch {e}: {t['epoch_s']:.3f} s = step loop "
-                      f"{t['loop_s']:.3f} s (waiting on the loader "
-                      f"{t['loader_wait_s']:.3f} s, share of the loop "
-                      f"{t['loader_wait_s'] / t['loop_s']:.3f}, of the "
-                      f"epoch {t['loader_wait_s'] / t['epoch_s']:.3f}) + "
-                      f"validation {t['val_s']:.3f} s + checkpoint writes "
-                      f"{t['ckpt_s']:.3f} s + the rest [{card}]")
-            final = states[-1]
-            off = [k for k, t in state_tensors(final).items()
-                   if t.device.type != torch.device(dev).type]
-            if off:
-                raise AssertionError(f"{preset}: {len(off)} tensors not on "
-                                     f"{dev}, e.g. {off[:3]}")
-            size = os.path.getsize(os.path.join(
-                cfg.experiment_dir, "ckpt_best", state_lib.CKPT_FILE))
-            print(f"    all {len(state_tensors(final))} tensors of the "
-                  f"final state on {dev}; checkpoints "
-                  f"{sorted(os.listdir(cfg.experiment_dir))}, "
-                  f"{size / 1e6:.1f} MB each")
-            if cfg.model == "heatmap_shared":
-                best[preset] = state_lib.read_checkpoint(os.path.join(
-                    cfg.experiment_dir, "ckpt_best"))["net"]
-            else:
-                frozen_params_check(final, best)
-            del states, final
-            empty_cache(torch)
-
-        argv = ["--preset", CLI_PRESETS[2]] + common
-        wall, counts, (_, pps) = run_cli(torch, cli_test.main, argv, **kw)
-        launches["cli.test"] = counts
+    data = os.path.join(tmp, "data")
+    t0 = time.perf_counter()
+    generate_dataset(data, "UnrealEgo", num_sequences=2,
+                     frames_per_seq=frames, image_size=image_size)
+    size = sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(data) for f in fs)
+    print(f"  synthetic dataset: 3 splits of 2 x {frames} frames, "
+          f"{4 * image_size} x {4 * image_size} RGB, {size / 1e6:.1f} MB, "
+          f"written in {time.perf_counter() - t0:.2f} s")
+    common = cli_common(tmp, image_size)
+    best = {}
+    for preset in CLI_PRESETS:
+        argv = ["--preset", preset] + common
         cfg = Config.from_args(argv)
-        units = cli_units(cfg, make_loader, 0)
-        n_test = len(make_loader(cfg, "test"))
-        timed = (f"timed over the {n_test - 1} test batch(es) after the "
-                 f"first" if n_test > 1 else "its one test batch timed")
-        print(f"  cli.test: returned after {wall:.2f} s; launches {counts} "
-              f"over {units} eval batches; evaluate {pps:.1f} pairs/s "
-              f"(f32, batch {cfg.batch_size}, {timed}) [{card}]")
-        expect_counts(counts, PER_UNIT[cfg.model], units, "cli.test", device)
-        res = cfg.results_dir
-        n = 2 * frames
-        detail = open(os.path.join(res, "detail_result.txt")).read()
-        cats = open(os.path.join(res, "categorical_result.txt")).read()
-        pred = np.load(os.path.join(res, "pred_pose.npy"))
-        if len(detail.splitlines()) != n + 1 or pred.shape != (n, 16, 3) \
-                or not np.isfinite(pred).all() or len(cats.splitlines()) != 4:
-            raise AssertionError(f"cli.test: detail {len(detail.splitlines())}"
-                                 f" lines, pose {pred.shape}, categorical "
-                                 f"{cats!r}")
-        print(f"    detail_result.txt {n} rows, categorical_result.txt "
-              f"{len(cats.splitlines())} lines, pred_pose.npy {pred.shape}")
-        reload_check(torch, cfg, pred, kw)
+        if preset == CLI_PRESETS[2]:
+            warm_start_check(torch, cfg, best, loop, create_task, kw)
+        states = []
+        wall, counts, _ = run_cli(
+            torch, cli_train.main, argv,
+            epoch_callback=lambda r: states.append(r["state"]), **kw)
+        launches[preset] = counts
+        units = cli_units(cfg, make_loader, 2)
+        print(f"  {preset}: returned after {wall:.2f} s; launches "
+              f"{counts} over {units} training steps and eval batches "
+              f"(batch {cfg.batch_size})")
+        expect_counts(counts, PER_UNIT[cfg.model], units, preset, device)
+        epochs = check_run_artifacts(cfg)
+        for e, t in sorted(epochs.items()):
+            print(f"    epoch {e}: {t['epoch_s']:.3f} s = step loop "
+                  f"{t['loop_s']:.3f} s (waiting on the loader "
+                  f"{t['loader_wait_s']:.3f} s, share of the loop "
+                  f"{t['loader_wait_s'] / t['loop_s']:.3f}, of the "
+                  f"epoch {t['loader_wait_s'] / t['epoch_s']:.3f}) + "
+                  f"validation {t['val_s']:.3f} s + checkpoint writes "
+                  f"{t['ckpt_s']:.3f} s + the rest [{card}]")
+        final = states[-1]
+        off = [k for k, t in state_tensors(final).items()
+               if t.device.type != torch.device(dev).type]
+        if off:
+            raise AssertionError(f"{preset}: {len(off)} tensors not on "
+                                 f"{dev}, e.g. {off[:3]}")
+        size = os.path.getsize(os.path.join(
+            cfg.experiment_dir, "ckpt_best", state_lib.CKPT_FILE))
+        print(f"    all {len(state_tensors(final))} tensors of the "
+              f"final state on {dev}; checkpoints "
+              f"{sorted(os.listdir(cfg.experiment_dir))}, "
+              f"{size / 1e6:.1f} MB each")
+        if cfg.model == "heatmap_shared":
+            best[preset] = state_lib.read_checkpoint(os.path.join(
+                cfg.experiment_dir, "ckpt_best"))["net"]
+        else:
+            frozen_params_check(final, best)
+        del states, final
+        empty_cache(torch)
+
+    argv = ["--preset", CLI_PRESETS[2]] + common
+    wall, counts, (_, pps) = run_cli(torch, cli_test.main, argv, **kw)
+    launches["cli.test"] = counts
+    cfg = Config.from_args(argv)
+    units = cli_units(cfg, make_loader, 0)
+    n_test = len(make_loader(cfg, "test"))
+    timed = (f"timed over the {n_test - 1} test batch(es) after the "
+             f"first" if n_test > 1 else "its one test batch timed")
+    print(f"  cli.test: returned after {wall:.2f} s; launches {counts} "
+          f"over {units} eval batches; evaluate {pps:.1f} pairs/s "
+          f"(f32, batch {cfg.batch_size}, {timed}) [{card}]")
+    expect_counts(counts, PER_UNIT[cfg.model], units, "cli.test", device)
+    res = cfg.results_dir
+    n = 2 * frames
+    detail = open(os.path.join(res, "detail_result.txt")).read()
+    cats = open(os.path.join(res, "categorical_result.txt")).read()
+    pred = np.load(os.path.join(res, "pred_pose.npy"))
+    if len(detail.splitlines()) != n + 1 or pred.shape != (n, 16, 3) \
+            or not np.isfinite(pred).all() or len(cats.splitlines()) != 4:
+        raise AssertionError(f"cli.test: detail {len(detail.splitlines())}"
+                             f" lines, pose {pred.shape}, categorical "
+                             f"{cats!r}")
+    print(f"    detail_result.txt {n} rows, categorical_result.txt "
+          f"{len(cats.splitlines())} lines, pred_pose.npy {pred.shape}")
+    reload_check(torch, cfg, pred, kw)
     return launches
 
 
@@ -1726,6 +1766,313 @@ def reload_check(torch, cfg, pred, kw):
                              "tensor")
 
 
+# the lifter's other skeleton layers and the learned-LR optimizers at full
+# width (phase 9): the lifter alone for these configurations beside the
+# serving one (skel_layer "LSTM", the Config default, serves through a
+# Predictor)
+VARIANTS = {
+    "LSTM": dict(skel_layer="LSTM"),
+    "LSTMSplit": dict(skel_layer="LSTMSplit"),
+    "LSTMNoRel": dict(skel_layer="LSTMNoRel"),
+    "None": dict(skel_layer="None"),
+    "NoneNoRel": dict(skel_layer="NoneNoRel"),
+    "PU tree": dict(skel_layer="PU", pu_semantics="tree"),
+    "PU 3 layers": dict(skel_layer="PU", n_skel_layers=3),
+}
+# launches without kernel C (it covers only the 2-layer PU chain): per
+# Predictor forward, per lifter forward, per training step or eval batch
+PER_FORWARD_NO_C = {**PER_FORWARD, "pu_chain": 0}
+PER_LIFTER = {**{n: 0 for n in PER_FORWARD}, "attention": 3}
+PER_LSTM_STEP = {**PER_TRAIN_STEP, "pu_chain": 0}
+# f32 pose of batch 2, card vs CPU, relative to max|cpu| (phase 3's limit
+# for the whole forward)
+VARIANT_CPU_TOL = 1e-4
+VARIANT_REQUESTS = 5               # timed lifter forwards (after one)
+LEARNED_LR = ("DAdam", "Prodigy", "DSGD", "DAdaGrad")
+# an epoch of 4 steps: the warm-up of the preset's cos_anneal_warmup
+# (lr 0 at step 0, which is DAdam's zero-denominator step) ends at step 4,
+# so most of the 12 steps run near the peak of the schedule
+VARIANT_ITERS_PER_EPOCH = 4
+D0 = 1e-6                          # every learned-LR estimate's start
+PARAM_TOL = 1e-5                   # f32 parameters after the update
+CLI_VARIANT = ["--preset", "egotap_unrealego", "--skel_layer", "LSTM",
+               "--optimizer_type", "DAdam", "--experiment_name",
+               "egotap_unrealego_lstm_dadam"]
+
+
+def variant_lifter(torch, fields, seed):
+    """The f32 lifter of the serving configuration with ``fields``, with
+    seeded weights (`serving.init_weights`), in eval mode on the CPU."""
+    from egotap_tpu_torch.serving import build_nets, init_weights
+    from egotap_tpu_torch.serving import serving_config
+    lifter = build_nets(serving_config(**fields))[2]
+    init_weights(lifter, torch.Generator().manual_seed(seed))
+    return lifter.eval()
+
+
+def variant_forwards(torch, card, hm):
+    """Phase 9 (a) after the Predictor: each variant's lifter alone on the
+    bf16 heatmap stack ``hm`` (timed, launches counted), its f32 pose of
+    batch 2 card vs CPU, and the LSTM walked as a chain rejected."""
+    import copy
+    from egotap_tpu_torch.serving import cast_matmul_weights
+    hm2 = hm[:2].float()
+    out = {}
+    for i, (name, fields) in enumerate(VARIANTS.items()):
+        card32 = variant_lifter(torch, fields, seed=10 + i)
+        ref = card32(hm2.cpu())                 # the CPU's pose, then moved
+        card32.cuda()
+        bf16 = copy.deepcopy(card32)
+        cast_matmul_weights(bf16, torch.bfloat16)
+        reset_counts()
+        ms = time_ms(torch, lambda: bf16(hm), iters=VARIANT_REQUESTS,
+                     warmup=1)
+        counts = read_counts()
+        calls = VARIANT_REQUESTS + 1
+        want = {n: c * calls for n, c in PER_LIFTER.items()}
+        if counts != want:
+            raise AssertionError(f"lifter {name}: launches {counts}, "
+                                 f"expected {want}")
+        got = card32(hm2).cpu()
+        scale = float(ref.abs().max())
+        err = float((got - ref).abs().max()) / scale
+        if not torch.isfinite(got).all() or err > VARIANT_CPU_TOL:
+            raise AssertionError(f"lifter {name}: f32 card vs CPU {err:.3e}")
+        line = (f"  lifter {name}: bf16 forward median {ms:.3f} ms at batch "
+                f"{hm.shape[0]}, launches {counts} over {calls} forwards; "
+                f"f32 card vs CPU, batch 2: {err:.3e} of max|pose| "
+                f"{scale:.3f} (tol {VARIANT_CPU_TOL:.0e})")
+        if name == "LSTM":
+            walk = card32.skel_sequential_layer["lstm"]
+            walk.parents = tuple(range(len(walk.parents)))
+            chain = float((card32(hm2).cpu() - ref).abs().max()) / scale
+            line += f"; control (walked as a chain) {chain:.3e}"
+            if not chain > VARIANT_CPU_TOL:
+                raise AssertionError("the LSTM walked as a chain was not "
+                                     "rejected")
+        print(line + f" [{card}]")
+        out[name] = ms
+        del card32, bf16
+        torch.cuda.empty_cache()
+    return out
+
+
+def variant_train(torch, card):
+    """Phase 9 (b): the LSTM lifter's training step under each learned-LR
+    optimizer, then one f32 Prodigy step card vs CPU. Returns the launch
+    counts of one optimizer's steps."""
+    import dataclasses
+
+    from egotap_tpu_torch.core.config import Config
+    from egotap_tpu_torch.train.tasks import LifterTask
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    batch = train_inputs(torch, gen, 32)            # the same batch each step
+    name_hh = "skel_sequential_layer.lstm.weight_hh_l1"
+    base = Config.from_preset("egotap_unrealego", skel_layer="LSTM")
+    state0 = LifterTask(base, device="cuda").init_state(
+        seed=0, iters_per_epoch=VARIANT_ITERS_PER_EPOCH)
+    counts = None
+    for opt_name in LEARNED_LR:
+        cfg = dataclasses.replace(base, optimizer_type=opt_name)
+        task = LifterTask(cfg, device="cuda")
+        state = with_optimizer(torch, state0, cfg, "cuda")
+        hh0 = dict(state.net.named_parameters())[name_hh].detach().clone()
+        reset_counts()
+        times, losses, estimates = [], [], []
+        for _ in range(TRAIN_STEPS):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            state, loss = task.train_step(state, batch)
+            e.record()
+            times.append((s, e))
+            losses.append(loss)
+            estimates.append((state.opt.estimate.clone(),
+                              state.opt.d_hat.clone()))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = {n: TRAIN_STEPS * c for n, c in PER_LSTM_STEP.items()}
+        if counts != want:
+            raise AssertionError(f"{opt_name}: launches {counts}, "
+                                 f"expected {want}")
+        values = [v for loss in losses for v in
+                  (float(x) for x in loss.values())]
+        if not all(math.isfinite(v) for v in values):
+            raise AssertionError(f"{opt_name}: a loss is not finite")
+        moved = not torch.equal(dict(state.net.named_parameters())[name_hh],
+                                hh0)
+        ms = statistics.median(s.elapsed_time(e)
+                               for s, e in times[-TIMED_STEPS:])
+        est = [float(d) for d, _ in estimates]
+        d_hat = [float(x) for _, x in estimates]
+        print(f"  LSTM training step, {opt_name}: median {ms:.3f} ms over "
+              f"the last {TIMED_STEPS} of {TRAIN_STEPS} steps of batch "
+              f"{cfg.batch_size} = {1e3 * cfg.batch_size / ms:.2f} pairs/s; "
+              f"losses {values[:2]} -> {values[-2:]}; d by step "
+              f"{[f'{x:.3e}' for x in est]}; the step's own estimate d_hat "
+              f"{[f'{x:.3e}' for x in d_hat]}; {name_hh} moved: {moved} "
+              f"[{card}]")
+        if not moved or not all(math.isfinite(x) for x in est + d_hat):
+            raise AssertionError(f"{opt_name}: {name_hh} moved {moved}, "
+                                 f"estimates {est}, {d_hat}")
+        # d grows past its start, or the step's own estimate rises over
+        # the run toward it (from the third step, the first with two
+        # gradients behind it): DAdam's and Prodigy's, whose eps (1e-4)
+        # outweighs most of the lifter's per-weight gradients, need more
+        # than 12 steps to pass 1e-6
+        if not (est[-1] > D0 or d_hat[-1] > d_hat[2] > 0):
+            raise AssertionError(f"{opt_name}: the d-estimate did not grow")
+        del state, task
+        torch.cuda.empty_cache()
+    del state0
+    prodigy_card_vs_cpu(torch)
+    return counts
+
+
+def with_optimizer(torch, state, cfg, device):
+    """A copy of ``state``'s nets on ``device`` with a fresh optimizer of
+    ``cfg`` (the four optimizers start from one seeded `init_state`)."""
+    import copy
+    from egotap_tpu_torch.train.optim import make_optimizer
+    from egotap_tpu_torch.train.state import TrainState
+    return TrainState.create(
+        copy.deepcopy(state.net),
+        {k: copy.deepcopy(n) for k, n in state.frozen.items()},
+        make_optimizer(cfg, VARIANT_ITERS_PER_EPOCH), torch.device(device))
+
+
+def prodigy_card_vs_cpu(torch):
+    """One f32 Prodigy step of the LSTM lifter at batch 2, card vs CPU,
+    under a 'lambda' schedule (lr 1 x d at step 0, so the step moves the
+    parameters): losses, the lifter's gradient, the parameters after the
+    update."""
+    from egotap_tpu_torch.core.config import Config
+    from egotap_tpu_torch.train.tasks import LifterTask
+    cfg = Config.from_preset("egotap_unrealego", skel_layer="LSTM",
+                             optimizer_type="Prodigy", use_amp=False,
+                             batch_size=2, lr_policy="lambda")
+    batch = train_inputs(torch, torch.Generator(device="cuda").manual_seed(31),
+                         2)
+    readings = {}
+    cpu_state = LifterTask(cfg, device="cpu").init_state(
+        seed=1, iters_per_epoch=VARIANT_ITERS_PER_EPOCH)
+    for dev in ("cuda", "cpu"):
+        task = LifterTask(cfg, device=dev)
+        st = (with_optimizer(torch, cpu_state, cfg, dev) if dev == "cuda"
+              else cpu_state)
+        before = {n: p.detach().cpu().clone()
+                  for n, p in st.net.named_parameters()}
+        loss, grads = task.gradients(st, {k: v.to(dev)
+                                          for k, v in batch.items()})
+        st.opt.step(dict(st.net.named_parameters()), grads)
+        after = {n: p.detach().cpu() for n, p in st.net.named_parameters()}
+        readings[dev] = (loss, grads, before, after)
+        del task, st
+    (loss, grads, _, after), (ref_loss, ref_grads, before, ref_after) = \
+        readings["cuda"], readings["cpu"]
+    gap = max(loss_gap(k, float(loss[k]), float(ref_loss[k]))
+              for k in ref_loss)
+    ref = flat_grad(torch, ref_grads, ref_grads)
+    rel = float((flat_grad(torch, grads, ref_grads) - ref).norm()
+                / ref.norm())
+    scale = max(float(p.abs().max()) for p in ref_after.values())
+    err = max(float((after[n] - p).abs().max()) for n, p in ref_after.items())
+    step = max(float((p - before[n]).abs().max())
+               for n, p in ref_after.items())
+    print(f"  f32 Prodigy step, card vs CPU, batch 2: loss gap {gap:.3e} "
+          f"(rtol {TRAIN_LOSS_RTOL:.0e}); gradient rel-L2 {rel:.3e} (tol "
+          f"{TRAIN_GRAD_TOL:.0e}); parameters after the update "
+          f"{err:.3e} of their max {scale:.3f} (tol {PARAM_TOL:.0e}; the "
+          f"update's largest move {step:.3e})")
+    if gap > TRAIN_LOSS_RTOL or rel > TRAIN_GRAD_TOL or \
+            err > PARAM_TOL * scale or not step > 0:
+        raise AssertionError("the f32 Prodigy step on the card and the CPU "
+                             "disagree")
+    torch.cuda.empty_cache()
+
+
+def variant_cli(torch, card, tmp):
+    """Phase 9 (c): `cli.train` with the LSTM lifter under DAdam on phase
+    8's dataset, warm-started from phase 8's stage-1 ckpt_best, then
+    `cli.test`; the reload of its ckpt_best. Returns the launch counts
+    of both runs."""
+    import os
+
+    import numpy as np
+    from egotap_tpu_torch.cli import test as cli_test
+    from egotap_tpu_torch.cli import train as cli_train
+    from egotap_tpu_torch.core.config import Config
+    from egotap_tpu_torch.data.pipeline import make_loader
+    from egotap_tpu_torch.train import state as state_lib
+    argv = CLI_VARIANT + cli_common(tmp)
+    cfg = Config.from_args(argv)
+    per_unit = {**PER_UNIT["egotap_autoencoder"], "pu_chain": 0}
+    reports = []
+    wall, counts, _ = run_cli(torch, cli_train.main, argv, epoch_callback=(
+        lambda r: reports.append((r["bad_loss"], r["train_losses"]))))
+    units = cli_units(cfg, make_loader, 2)
+    losses = [v for _, d in reports for v in d.values()]
+    print(f"  cli.train {' '.join(CLI_VARIANT[:6])}: returned after "
+          f"{wall:.2f} s; launches {counts} over {units} training steps and "
+          f"eval batches; epoch losses {[r[1] for r in reports]}")
+    expect_counts(counts, per_unit, units, "cli.train (LSTM, DAdam)", None)
+    if len(reports) != 2 or any(bad for bad, _ in reports) or not losses \
+            or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"cli.train (LSTM, DAdam): reports {reports}")
+    check_run_artifacts(cfg)
+    saved = state_lib.read_checkpoint(os.path.join(cfg.experiment_dir,
+                                                   "ckpt_best"))
+    opt = saved["opt"]
+    fields = ("count", "exp_avg", "exp_avg_sq", "grad_sum", "estim_lr",
+              "numerator_weighted")
+    if sorted(opt) != sorted(fields) or not opt["count"] > 0 or \
+            not math.isfinite(float(opt["estim_lr"])) or \
+            "skel_sequential_layer.lstm.weight_hh_l1" not in opt["exp_avg"] \
+            or not set(opt["exp_avg"]) <= set(saved["net"]):
+        raise AssertionError(f"ckpt_best's optimizer state: {sorted(opt)}")
+    print(f"    ckpt_best holds DAdam's state: count {opt['count']}, "
+          f"estim_lr {float(opt['estim_lr']):.3e}, numerator_weighted "
+          f"{float(opt['numerator_weighted']):.3e}, {len(opt['exp_avg'])} "
+          f"tensors a tree")
+    wall, test_counts, (_, pps) = run_cli(torch, cli_test.main, argv)
+    units = cli_units(cfg, make_loader, 0)
+    print(f"  cli.test: returned after {wall:.2f} s; launches {test_counts} "
+          f"over {units} eval batches; evaluate {pps:.1f} pairs/s [{card}]")
+    expect_counts(test_counts, per_unit, units, "cli.test (LSTM)", None)
+    pred = np.load(os.path.join(cfg.results_dir, "pred_pose.npy"))
+    if pred.shape != (2 * CLI_FRAMES, 16, 3) or not np.isfinite(pred).all():
+        raise AssertionError(f"cli.test (LSTM): pose {pred.shape}")
+    reload_check(torch, cfg, pred, {})
+    return {"cli.train": counts, "cli.test": test_counts}
+
+
+def phase_variants(torch, card, tmp):
+    """Phase 9 (see the module docstring): (a) the LSTM Predictor and the
+    lifter variants, (b) the LSTM training step under the learned-LR
+    optimizers, (c) the CLIs with the LSTM lifter under DAdam."""
+    from egotap_tpu_torch.serving import Predictor, serving_config
+    t0 = time.perf_counter()
+    g = torch.Generator().manual_seed(1)
+    rgb_dev = torch.randn(32, 2, 256, 256, 3, generator=g).cuda()
+    pred = Predictor(serving_config(skel_layer="LSTM"), bf16=True,
+                     device="cuda", seed=0)
+    serve(torch, pred, rgb_dev, "LSTM Predictor bf16", card,
+          per_forward=PER_FORWARD_NO_C)
+    hm = pred._heatmap_stack(rgb_dev)
+    del pred, rgb_dev
+    forwards = variant_forwards(torch, card, hm)
+    del hm
+    torch.cuda.empty_cache()
+    print(f"  (a) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        train_counts = variant_train(torch, card)
+    print(f"  (b) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cli = variant_cli(torch, card, tmp)
+    print(f"  (c) took {time.perf_counter() - t0:.1f} s")
+    return {"forward_ms": forwards, "train_counts": train_counts, "cli": cli}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1776,9 +2123,14 @@ def main() -> int:
     with torch.enable_grad():
         stage1 = phase_train1(torch, card)
 
-    print("phase 8: the train and test CLIs end to end, full width: "
-          "stage 1 (joint, limb), stage 2 warm-started from both, test")
-    cli = phase_cli(torch, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        print("phase 8: the train and test CLIs end to end, full width: "
+              "stage 1 (joint, limb), stage 2 warm-started from both, test")
+        cli = phase_cli(torch, card, tmp)
+
+        print("phase 9: the lifter's other skeleton layers and the "
+              "learned-LR optimizers, full width: serving, training, CLIs")
+        variants = phase_variants(torch, card, tmp)
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     # launches of each row: the int8 forward's (bf16 compute) for the bf16
     # rows, the f32 forward's for the f32 attention and PU chain rows, and
@@ -1831,6 +2183,12 @@ def main() -> int:
         if dt == torch.bfloat16 and key in PER_UNIT["egotap_autoencoder"]:
             kernels[-1]["cli_launches"] = {run: c[key]
                                            for run, c in cli.items()}
+        # phase 9: the LSTM lifter's training step (bf16) and its CLI runs
+        if dt == torch.bfloat16:
+            kernels[-1]["lstm_train_step_launches"] = \
+                variants["train_counts"][key] / TRAIN_STEPS
+            kernels[-1]["lstm_cli_launches"] = {
+                run: c[key] for run, c in variants["cli"].items()}
         # stage 1 trains in bf16: A's launches a step and its backward
         if (key, dt) == ("upsample", torch.bfloat16):
             kernels[-1]["train1_step_launches"] = \

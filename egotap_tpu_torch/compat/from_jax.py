@@ -13,10 +13,10 @@ reference-only tensors its forward never reads (torchvision ``fc``, ViT
 
 `task_state_from_jax` carries a JAX `HeatmapTask` or `LifterTask`
 training state (the trained net with its running statistics, the frozen
-nets of stage 2, the step and the optax Adam/AdamW moments) into the
-port's `train.state.TrainState`, each moment through the same layout
-mapping as its parameter, so that a run started in JAX continues in the
-port.
+nets of stage 2, the step and the optimizer state: Adam/AdamW moments or
+a learned-LR optimizer's state) into the port's `train.state.TrainState`,
+each per-parameter field through the same layout mapping as its
+parameter, so that a run started in JAX continues in the port.
 
 `install_jax_scales` carries the static activation scales of a JAX
 ``qparams`` collection (``a_scale`` entries, `amax_to_qparams`) into the
@@ -166,11 +166,14 @@ def _vit(w: _Writer, path: Tuple[str, ...], prefix: str,
     w.raw(prefix + "pooler.dense.bias", np.zeros((hidden,), np.float32))
 
 
-def lifter_state_dict(variables: Dict[str, Any], num_vit_layers: int = 3,
-                      num_pu_layers: int = 2
+def lifter_state_dict(variables: Dict[str, Any], num_vit_layers: int = 3
                       ) -> "collections.OrderedDict[str, torch.Tensor]":
     """EgoTAPLifter variables -> a ``*_net_AutoEncoder.pth``-layout
-    state_dict."""
+    state_dict. The skeleton layer is read from the variables: PU cells
+    ``skelnet/cell{i}`` (any count) or LSTM layers ``skelnet/layer{i}``
+    (``w_ih``/``w_hh`` stored (in, 4H), ``b_ih``/``b_hh``) to
+    ``skel_sequential_layer.lstm.{weight,bias}_{ih,hh}_l{i}``, as the
+    reference's nn.LSTM names them; the pass-through layers have none."""
     w = _Writer(variables)
     _vit(w, ("pos_encoder", "vit"), "pos_heatmap_encoder.vit.",
          num_vit_layers)
@@ -179,11 +182,23 @@ def lifter_state_dict(variables: Dict[str, Any], num_vit_layers: int = 3,
         for n in ("fc1", "fc2", "fc3"):
             w.linear(f"{prefix}{n}.fc", enc, n, "fc")
             w.bn(f"{prefix}{n}.bn", enc, n, "bn")
-    for i in range(num_pu_layers):
+    i = 0
+    while w.has("skelnet", f"cell{i}"):
         t = f"skel_sequential_layer.lstm_custom.layers.{i}."
         for name in ("x2f", "x2h", "b2h", "h2h"):
             if w.has("skelnet", f"cell{i}", name):
                 w.linear(t + name, "skelnet", f"cell{i}", name)
+        i += 1
+    i = 0
+    while w.has("skelnet", f"layer{i}"):
+        t = "skel_sequential_layer.lstm."
+        for leaf, name, transpose in (("w_ih", "weight_ih", True),
+                                      ("w_hh", "weight_hh", True),
+                                      ("b_ih", "bias_ih", False),
+                                      ("b_hh", "bias_hh", False)):
+            value = w.get(w.p, "skelnet", f"layer{i}", leaf)
+            w.raw(f"{t}{name}_l{i}", value.T if transpose else value)
+        i += 1
     w.linear("pose_mlp.pose_fcs.0", "pose_mlp", "head")
     if w.has("global_mlp"):
         w.linear("global_mlp.pose_fcs.0", "global_mlp", "head")
@@ -205,7 +220,9 @@ def heatmap_net_from_jax(variables: Dict[str, Any],
 def lifter_from_jax(variables: Dict[str, Any], num_vit_layers: int = 3, *,
                     device="cuda", **lifter_kwargs) -> EgoTAPLifter:
     """An `EgoTAPLifter` holding the JAX EgoTAPLifter's weights (strict);
-    ``lifter_kwargs`` are the lifter's constructor arguments."""
+    ``lifter_kwargs`` are the lifter's constructor arguments, as JAX's
+    (``skel_layer``, ``parents``, ``pu_semantics``, ``num_pu_layers``,
+    ...)."""
     dev = resolve_device(device)
     sd = lifter_state_dict(variables, num_vit_layers)
     net = EgoTAPLifter(vit_layers=num_vit_layers, **lifter_kwargs)
@@ -228,10 +245,17 @@ def task_state_from_jax(jax_state: Any, cfg: Config, iters_per_epoch: int,
     ``heatmap_shared`` (`HeatmapTask`) the HeatmapUNet's params and
     batch_stats, for ``egotap_autoencoder`` (`LifterTask`) the lifter's
     and the frozen ``heatmap`` / ``rot_heatmap`` nets with their running
-    statistics; then ``step`` and the optax state's ``count`` and Adam /
-    AdamW moments ``mu`` / ``nu`` (each mapped like its parameter). The
-    optimizer is the one JAX's ``init_state`` builds: stage-1 Adam for
-    stage 1, `make_optimizer(cfg, iters_per_epoch)` for stage 2."""
+    statistics; then ``step`` and the optimizer state: its count
+    (``count``, or ``step`` for DSGD / DAdaGrad), each per-parameter
+    field the port's optimizer keeps (Adam / AdamW ``mu`` / ``nu``;
+    DAdam's and Prodigy's ``exp_avg``, ``exp_avg_sq``, ``grad_sum`` and
+    Prodigy's ``params0``; DSGD's ``s``; DAdaGrad's ``s`` and ``a_sq``),
+    each mapped like its parameter, and each scalar as it is
+    (``estim_lr``, ``numerator_weighted``, ``d``, ``g0_norm``,
+    ``grad_sum_sq``, ``weighted_sum``). The optimizer is the one JAX's
+    ``init_state`` builds: stage-1 Adam for stage 1,
+    `make_optimizer(cfg, iters_per_epoch)` for stage 2, and the lifter
+    is built for ``cfg.skel_layer``."""
     dev = resolve_device(device)
     stats = jax_state.batch_stats
     if cfg.model == "heatmap_shared":
@@ -251,22 +275,26 @@ def task_state_from_jax(jax_state: Any, cfg: Config, iters_per_epoch: int,
                 jax_state.frozen[key], cfg.model_name), strict=True)
 
         def to_state_dict(params):
-            return lifter_state_dict(
-                {"params": params, "batch_stats": stats},
-                num_pu_layers=cfg.n_skel_layers)
+            return lifter_state_dict({"params": params, "batch_stats": stats})
         opt = make_optimizer(cfg, iters_per_epoch)
     net.load_state_dict(to_state_dict(jax_state.params), strict=True)
     state = TrainState.create(net, frozen, opt, dev,
                               step=int(np.asarray(jax_state.step)))
     for sub in _optax_states(jax_state.opt_state):
-        if "count" in sub._fields:
-            opt.count = int(np.asarray(sub.count))
-        if "mu" in sub._fields:
-            for name in ("mu", "nu"):
-                sd = to_state_dict(getattr(sub, name))
-                moments = getattr(opt, name)
-                for key in moments:
-                    moments[key] = sd[key].to(dev)
+        fields = sub._fields
+        for count in ("count", "step"):
+            if count in fields:
+                opt.count = int(np.asarray(getattr(sub, count)))
+        for field, tree in opt.trees.items():
+            if field in fields:
+                sd = to_state_dict(getattr(sub, field))
+                for key in tree:
+                    tree[key] = sd[key].to(dev)
+        for field, value in opt.scalars.items():
+            if field in fields:
+                value.copy_(torch.as_tensor(np.asarray(getattr(sub, field),
+                                                       np.float32)))
+        if any(field in fields for field in opt.trees):
             break
     return state
 

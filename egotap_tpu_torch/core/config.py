@@ -8,8 +8,7 @@ take the JAX package's flags and presets and `save` writes the same
 option files. A few fields are kept for the flag surface only and read
 by nothing in the port: ``patched_heatmap_ae`` (the released lifter is
 always built, as in the JAX package), ``init_type``, ``use_slurm``,
-``metadata_dir``, ``project_name``, and the learned-LR optimizers' knobs
-(``d_coef``, ``growth_rate``, ``decouple``; those optimizers raise).
+``metadata_dir``, ``project_name``.
 The port trains on one card: ``data_parallel`` above 1 raises in the
 training loop. The device is not a field: the entry points take it as a
 keyword argument (``device="cuda"`` unless the caller asks for the CPU).
@@ -59,7 +58,8 @@ class Config:
     # (eval/evaluate.py); 0 = dynamic per-call scales
     calib_batches: int = 0
     ae_hidden_size: int = 20
-    skel_layer: str = "LSTM"               # only PU is ported
+    # PU | LSTM | LSTMSplit | LSTMNoRel | None | NoneNoRel
+    skel_layer: str = "LSTM"
     patched_heatmap_ae: bool = False
     # stage 1: keep the ResNet trunk's own init (reference --init_ImageNet),
     # with its weights from a torchvision resnet .pth when one is named
@@ -77,14 +77,18 @@ class Config:
     epoch_count: int = 1
     niter: int = 0
     niter_decay: int = 0
-    optimizer_type: str = "Adam"           # Adam | AdamW | SGD (ported)
+    # Adam | AdamW | SGD | DAdam | DSGD | DAdaGrad | Prodigy
+    optimizer_type: str = "Adam"
     # lambda | step | exponent | cos_anneal | cos_anneal_warmup
     lr_policy: str = "lambda"
     lr_decay_iters_step: int = 4
     lr: float = 1e-3
     weight_decay: float = 0.0
     opt_eps: float = 1e-4
-    d_coef: float = 1.0
+    d_coef: float = 1.0                    # Prodigy d estimate coefficient
+    # growth_rate caps d's growth a step for DSGD / DAdaGrad (inf =
+    # uncapped); decouple asks for decoupled decay in DAdam, which is
+    # decoupled either way (make_optimizer warns when it is not set)
     growth_rate: float = float("inf")
     decouple: bool = False
     lambda_mpjpe: float = 1.0

@@ -6,6 +6,11 @@ The reference re-initializes networks after construction
   * Conv/Linear weights: kaiming normal, fan_in, a=0; biases zero. This
     covers everything with a Conv/Linear child, the Grid-ViT and the PU
     cells included.
+  * An LSTM walk (`skel_variants.LSTMTreeWalk`, the reference's
+    nn.LSTM) has no Conv/Linear child: it keeps torch's U(+-1/sqrt(H))
+    draw, as JAX's re-init leaves its ``w_ih``/``w_hh``/``b_*`` leaves
+    (only ``kernel``/``bias`` leaves are re-drawn there); it is drawn
+    here from the generator in module order.
   * BatchNorm2d: weight ~ U[0.02, 1.0], bias 0. BatchNorm1d is not
     matched by the reference's classname check and keeps torch's
     defaults (weight 1, bias 0).
@@ -24,14 +29,17 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from egotap_tpu_torch.models.skel_variants import LSTMTreeWalk
+
 
 @torch.no_grad()
 def apply_reference_init(module: nn.Module, generator: torch.Generator,
                          skip_prefixes: Sequence[str] = ()) -> nn.Module:
     """Re-draw conv and linear weights (kaiming normal, fan_in), zero
-    their biases, and draw BatchNorm2d weights from U[0.02, 1] with zero
-    biases, in place, in module order. Submodules whose name is one of
-    ``skip_prefixes`` or lies under one (``"backbone"`` covers
+    their biases, draw BatchNorm2d weights from U[0.02, 1] with zero
+    biases and LSTM walks from U(+-1/sqrt(H)), in place, in module
+    order. Submodules whose name is one of ``skip_prefixes`` or lies
+    under one (``"backbone"`` covers
     ``backbone.backbone.backbone.conv1``) are left as they are. Returns
     ``module``."""
     for name, m in module.named_modules():
@@ -47,6 +55,8 @@ def apply_reference_init(module: nn.Module, generator: torch.Generator,
             m.weight.copy_(torch.empty(m.weight.shape).uniform_(
                 0.02, 1.0, generator=generator))
             m.bias.zero_()
+        elif isinstance(m, LSTMTreeWalk):
+            m.reset_parameters(generator)
     return module
 
 

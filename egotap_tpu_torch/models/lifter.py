@@ -1,8 +1,15 @@
-"""EgoTAP lifter: heatmaps -> 3D pose (Grid-ViT + PU chain + MLP heads).
+"""EgoTAP lifter: heatmaps -> 3D pose (Grid-ViT + skeleton layer + MLP
+heads).
 
-Counterpart of `egotap_tpu/models/lifter.py:EgoTAPLifter`, PU path
-(reference ``EgoTAPAutoEncoder``, model/net_architecture.py:579-758,
-shipped configuration ``--patched_heatmap_ae --skel_layer PU``).
+Counterpart of `egotap_tpu/models/lifter.py:EgoTAPLifter` (reference
+``EgoTAPAutoEncoder``, model/net_architecture.py:579-758; the shipped
+configuration is ``--patched_heatmap_ae --skel_layer PU``), with every
+skeleton layer of the reference's SkelNet (``skel_layer``): the PU chain
+(`models/cells.py`), the LSTM walks (`models/skel_variants.py`) and the
+two pass-throughs. The recurrent module's state_dict key follows the
+reference: ``skel_sequential_layer.lstm_custom`` (PU),
+``skel_sequential_layer.lstm`` (LSTM, LSTMSplit, LSTMNoRel); the
+pass-throughs have no skeleton parameters.
 
 Dataflow for the stereo UnrealEgo config (V = 2 views, J = 15 joints,
 Ld = 2 sin-limb channels):
@@ -10,7 +17,7 @@ Ld = 2 sin-limb channels):
   pos    -> GridViTEncoder over V*J tiles     -> (B, V*J*hid)
   rot    -> LimbFCEncoder over V*J limb rows  -> (B, V*J*hid)
   regroup to per-joint (view-concat) embeddings (B, J, V*hid)
-  PU chain over joints                         -> (B, J, 2*V*hid)
+  skeleton layer over joints                   -> (B, J, feature_size)
   per-joint head Linear(concat(pos_j, skel_j)) -> 3
   global head Linear(flat skel) -> 3*(num_joints - J) (+3 offset added to
   every per-joint output for UnrealEgo)
@@ -18,12 +25,12 @@ Ld = 2 sin-limb channels):
 Predicted row i is trained against preset-order ground-truth row i (off by
 one joint); the network learns the permutation — kept as it is.
 ``quant`` makes both encoders int8 (`egotap_tpu/models/lifter.py:58`,
-`:87-94`); the PU chain and the heads stay in the compute dtype.
+`:87-94`); the skeleton layer and the heads stay in the compute dtype.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -31,7 +38,13 @@ from torch import nn
 from egotap_tpu_torch.models.cells import PUChain
 from egotap_tpu_torch.models.encoders import GridViTEncoder, LimbFCEncoder
 from egotap_tpu_torch.models.layers import MLPDecoder
+from egotap_tpu_torch.models.skel_variants import (LSTMTreeWalk,
+                                                   skel_output_size)
 from egotap_tpu_torch.models.vit import PATCH
+
+# skeleton layers over the LSTM stack: (input width, hidden width) in
+# units of the per-joint width V * hidden_size
+_LSTM_WIDTHS = {"LSTM": (2, 2), "LSTMSplit": (1, 1), "LSTMNoRel": (1, 1)}
 
 
 class EgoTAPLifter(nn.Module):
@@ -43,26 +56,31 @@ class EgoTAPLifter(nn.Module):
                  skel_layer: str = "PU", num_pu_layers: int = 2,
                  vit_layers: int = 3, use_global_offset: bool = True,
                  pu_semantics: str = "chain", heatmap_size: int = 64,
-                 quant: bool = False):
+                 quant: bool = False,
+                 parents: Optional[Sequence[int]] = None):
         super().__init__()
-        if skel_layer != "PU":
-            raise NotImplementedError(
-                f"skel_layer {skel_layer!r} is not ported (PU only)")
         J, V, Ld = num_heatmap, views, limb_dim
         Jr = num_rot_heatmap if num_rot_heatmap is not None else J
         self.J, self.Jr, self.V, self.Ld = J, Jr, V, Ld
         self.hid = hidden_size
         self.num_joints = num_joints
         self.use_global_offset = use_global_offset
+        self.skel_layer = skel_layer
         bh = hidden_size * V
+        feature_size = skel_output_size(skel_layer, bh)   # raises if unknown
         self.pos_heatmap_encoder = GridViTEncoder(
             num_tiles=J * V, hidden_size=hidden_size, vit_layers=vit_layers,
             heatmap_size=heatmap_size, quant=quant)
         self.rot_heatmap_encoder = LimbFCEncoder(
             Ld * heatmap_size * heatmap_size, hidden_size, quant)
-        self.skel_sequential_layer = nn.ModuleDict({"lstm_custom": PUChain(
-            bh, bh, 2 * bh, num_pu_layers, pu_semantics)})
-        feature_size = 2 * bh
+        self.skel_sequential_layer = nn.ModuleDict()
+        if skel_layer == "PU":
+            self.skel_sequential_layer["lstm_custom"] = PUChain(
+                bh, bh, 2 * bh, num_pu_layers, pu_semantics, parents)
+        elif skel_layer in _LSTM_WIDTHS:
+            n_in, n_hid = _LSTM_WIDTHS[skel_layer]
+            self.skel_sequential_layer["lstm"] = LSTMTreeWalk(
+                n_in * bh, n_hid * bh, num_pu_layers, parents)
         self.pose_mlp = MLPDecoder(bh + feature_size, 3)
         global_dim = 3 * (num_joints - J) + (3 if use_global_offset else 0)
         self.global_mlp = (MLPDecoder(J * feature_size, global_dim)
@@ -94,7 +112,7 @@ class EgoTAPLifter(nn.Module):
         elif Jr > J:
             rot_pj = rot_pj[:, Jr - J:]
 
-        skel = self.skel_sequential_layer["lstm_custom"](pos_pj, rot_pj)
+        skel = self._skeleton(pos_pj, rot_pj)
 
         # --- per-joint head
         per_joint = torch.cat([pos_pj, skel], dim=-1).reshape(B * J, -1)
@@ -109,3 +127,20 @@ class EgoTAPLifter(nn.Module):
                 others = others[:, 3:]
             pose = torch.cat([pose, others], dim=1)
         return pose.reshape(B, self.num_joints, 3)
+
+    def _skeleton(self, pos_pj: torch.Tensor, rot_pj: torch.Tensor
+                  ) -> torch.Tensor:
+        """The propagation over the joint sequence
+        (`egotap_tpu/models/lifter.py:113-137`)."""
+        mode, layers = self.skel_layer, self.skel_sequential_layer
+        if mode == "PU":
+            return layers["lstm_custom"](pos_pj, rot_pj)
+        if mode == "LSTM":
+            return layers["lstm"](torch.cat([pos_pj, rot_pj], dim=-1))
+        if mode == "LSTMSplit":
+            return layers["lstm"](pos_pj, extra_inputs=rot_pj)
+        if mode == "LSTMNoRel":
+            return layers["lstm"](pos_pj)
+        if mode == "None":
+            return torch.cat([pos_pj, rot_pj], dim=-1)
+        return pos_pj                                        # NoneNoRel

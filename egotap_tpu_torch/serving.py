@@ -30,9 +30,11 @@ from torch import nn
 
 from egotap_tpu_torch.core.config import Config
 from egotap_tpu_torch.core.device import resolve_device, set_f32_numerics
+from egotap_tpu_torch.core.skeleton import get_skeleton
 from egotap_tpu_torch.models.cells import PUChain
 from egotap_tpu_torch.models.heatmap_net import HeatmapUNet
 from egotap_tpu_torch.models.lifter import EgoTAPLifter
+from egotap_tpu_torch.models.skel_variants import LSTMTreeWalk
 from egotap_tpu_torch.ops.quant import (Calibrated, install_scales,
                                         prequantize, set_calibrating)
 
@@ -52,11 +54,16 @@ def serving_config(preset: str = "UnrealEgo", **overrides) -> Config:
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded random weights: uniform(+-1/sqrt(fan_in)) for convs and
-    linears, near-identity BatchNorm with non-trivial running statistics,
+    linears, uniform(+-1/sqrt(H)) for an LSTM walk (as nn.LSTM draws
+    them), near-identity BatchNorm with non-trivial running statistics,
     N(0, 0.02) for the ViT's embeddings."""
+    lstms = [m for m in module.modules() if isinstance(m, LSTMTreeWalk)]
+    drawn = {id(p) for m in lstms for p in m.parameters()}
     with torch.no_grad():
         for name, p in module.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
+            if id(p) in drawn:
+                continue
             if p.dim() >= 2 and leaf == "weight":
                 bound = 1.0 / np.sqrt(p[0].numel())
                 p.uniform_(-bound, bound, generator=generator)
@@ -71,13 +78,16 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                 m.running_var.uniform_(0.8, 1.2, generator=generator)
             elif isinstance(m, nn.LayerNorm):
                 m.weight.fill_(1.0)
+    for m in lstms:
+        m.reset_parameters(generator)
 
 
 def cast_matmul_weights(module: nn.Module, dtype: torch.dtype) -> None:
     """Store conv and linear weights in the compute dtype once, so the
     per-op casts of the forward are no-ops. The PU chain keeps f32
     parameters: its kernel takes f32 biases and casts its matrices
-    itself. int8 modules keep f32 weights, which they quantize (and fold
+    itself. An LSTM walk's parameters are not Linear modules: they stay
+    f32 and are cast once a forward. int8 modules keep f32 weights, which they quantize (and fold
     BatchNorm into) as the JAX package does. BatchNorm, LayerNorm and
     embeddings stay f32 (they compute in f32)."""
     skip = {id(m) for c in module.modules() if isinstance(c, PUChain)
@@ -104,7 +114,7 @@ def build_nets(cfg: Config, int8_heatmap: bool = False,
         use_global_offset=(cfg.joint_preset == "UnrealEgo"
                            and cfg.estimate_head),
         pu_semantics=cfg.pu_semantics, heatmap_size=cfg.heatmap_res,
-        quant=int8_lifter)
+        quant=int8_lifter, parents=get_skeleton(cfg.joint_preset).parents)
     return pos_net, rot_net, lifter
 
 

@@ -109,8 +109,8 @@ def train_main(cfg: Config, epoch_callback=None, device="cuda") -> bool:
     if cfg.data_parallel > 1:
         raise NotImplementedError(
             f"data_parallel={cfg.data_parallel}: the port trains on one "
-            "card (multi-process data parallelism is ROADMAP.md section 1, "
-            "item 6)")
+            "card (multi-process data parallelism is the item "
+            "\"Parallelism\" of ROADMAP.md section 1)")
     os.makedirs(cfg.experiment_dir, exist_ok=True)
     cfg.save(os.path.join(cfg.experiment_dir, "train_opt.txt"))
 

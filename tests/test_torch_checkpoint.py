@@ -1,7 +1,9 @@
 """Checkpoint I/O of the port (egotap_tpu_torch.train.state) for both
 tasks, at a small size (16 x 16 maps, 64-px RGB, batch 4, a lifter of
 hidden 8): a round trip bit for bit (parameters, BatchNorm statistics,
-frozen nets, step, Adam's count and moments), restoring into the live
+frozen nets, step, the optimizer's count and state: Adam's moments, or
+DAdam's and Prodigy's fields and estimates with an LSTM lifter),
+restoring into the live
 modules, ``restore_opt_state=False``, the removal of the previous epoch,
 a continuation (2 steps, save, load into a fresh state, 2 steps) equal
 to 4 steps bit for bit, and the stage-1 warm start from a checkpoint
@@ -42,6 +44,11 @@ PRESETS = {
                    lr_policy="cos_anneal_warmup", niter=1, niter_decay=2,
                    weight_decay=1e-2, lr=1e-4),
 }
+# the learned-LR optimizers, with the LSTM walks
+for _name, _fields in (("DAdam", dict(skel_layer="LSTM", decouple=True)),
+                       ("Prodigy", dict(skel_layer="LSTMSplit"))):
+    PRESETS[f"lifter_{_name.lower()}"] = {**PRESETS["lifter"], **_fields,
+                                          "optimizer_type": _name}
 
 
 @pytest.fixture
@@ -76,9 +83,9 @@ def _tensors(state):
     out = {f"net.{k}": v for k, v in state.net.state_dict().items()}
     for key, net in state.frozen.items():
         out.update({f"{key}.{k}": v for k, v in net.state_dict().items()})
-    for name in ("mu", "nu"):
-        out.update({f"opt.{name}.{k}": v
-                    for k, v in getattr(state.opt, name).items()})
+    for name, tree in state.opt.trees.items():
+        out.update({f"opt.{name}.{k}": v for k, v in tree.items()})
+    out.update({f"opt.{k}": v for k, v in state.opt.scalars.items()})
     return out, (state.step, state.opt.count)
 
 
@@ -89,7 +96,8 @@ def _assert_same(a, b):
         assert torch.equal(ta[k], tb[k]), k
 
 
-@pytest.mark.parametrize("kind", ["heatmap", "lifter"])
+@pytest.mark.parametrize("kind", ["heatmap", "lifter", "lifter_dadam",
+                                  "lifter_prodigy"])
 def test_round_trip_and_continuation(root, kind, tmp_path):
     task, state, feeds = _setup(root, kind)
     for feed in feeds[:2]:
@@ -103,15 +111,17 @@ def test_round_trip_and_continuation(root, kind, tmp_path):
     # a fresh state from another seed, restored in place
     _, fresh, _ = _setup(root, kind, seed=1)
     params = {n: p for n, p in fresh.net.named_parameters()}
-    moments = dict(fresh.opt.mu)
+    trees = {f: dict(t) for f, t in fresh.opt.trees.items()}
     loaded = state_lib.load_checkpoint(exp, "best", fresh)
     assert loaded is fresh
     _assert_same(loaded, state)
-    assert state.opt.count == 2 and \
-        any(float(m.abs().max()) > 0 for m in state.opt.nu.values())
+    second = "nu" if "nu" in state.opt.trees else "exp_avg_sq"
+    assert state.opt.count == 2 and any(
+        float(m.abs().max()) > 0 for m in state.opt.trees[second].values())
     for n, p in loaded.net.named_parameters():
         assert p is params[n]               # the live parameters, updated
-    assert all(loaded.opt.mu[n] is moments[n] for n in moments)
+    assert all(loaded.opt.trees[f][n] is t[n] for f, t in trees.items()
+               for n in t)
 
     # two more steps on both: the continuation equals 4 straight steps
     for feed in feeds[2:4]:

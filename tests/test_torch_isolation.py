@@ -36,7 +36,7 @@ def test_port_imports_no_jax_and_nothing_of_egotap_tpu():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 50            # every module of the port imported
+    assert int(count) >= 51            # every module of the port imported
     assert bad == "[]"
 
 
@@ -62,6 +62,37 @@ def test_lifter_task_defaults_to_cuda(entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make(cfg)
     assert make(cfg, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("fields", [
+    dict(),                                    # the Config default: LSTM
+    dict(skel_layer="LSTMSplit", optimizer_type="Prodigy"),
+    dict(skel_layer="PU", pu_semantics="tree", n_skel_layers=3,
+         optimizer_type="DAdam")])
+def test_lifter_variants_default_to_cuda(fields):
+    """The skeleton layers and learned-LR optimizers ported last: the
+    stage-2 task of each raises with no card and builds on the CPU when
+    asked, with the module the configuration names (no PU kernel path
+    for the tree) and the optimizer it names."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from egotap_tpu_torch.core.config import Config
+    from egotap_tpu_torch.models.skel_variants import LSTMTreeWalk
+    from egotap_tpu_torch.train.tasks import create_task
+    cfg = Config(model="egotap_autoencoder", num_heatmap=15,
+                 num_rot_heatmap=15, heatmap_type="sin", ae_hidden_size=8,
+                 **fields).derive()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_task(cfg)
+    state = create_task(cfg, device="cpu").init_state(0, 2)
+    layer = next(iter(state.net.skel_sequential_layer.values()))
+    if cfg.skel_layer == "PU":
+        assert not layer.uses_kernel and len(layer.layers) == 3
+    else:
+        assert isinstance(layer, LSTMTreeWalk)
+    assert state.opt.kind == {"Adam": "adam", "Prodigy": "prodigy",
+                              "DAdam": "dadam"}[cfg.optimizer_type]
+    assert all(p.device.type == "cpu" for p in state.net.parameters())
 
 
 @pytest.mark.parametrize("entry,preset", [

@@ -1,6 +1,7 @@
-"""The port's EgoTAPLifter (Grid-ViT + limb encoder + PU chain + heads)
-against the JAX package's, at a small size: J=4 heatmaps, 32x32
-heatmaps, hidden 32, ViT width 1024 with 3 layers."""
+"""The port's EgoTAPLifter (Grid-ViT + limb encoder + skeleton layer +
+heads) against the JAX package's, at a small size: J=4 heatmaps, 32x32
+heatmaps, hidden 32, ViT width 1024 with 3 layers; every skeleton layer
+(PU chain and tree, 1-3 PU layers, the LSTM walks, the pass-throughs)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,13 +22,26 @@ RES = 32
 # attention and PU chain keep f32 scores/state where the JAX default path
 # rounds them to bf16: the pose differs by 1-2% of its scale.
 TOL = {"float32": 1e-5, "bfloat16": 4e-2}
+# a branching 5-joint tree for the 4 walked joints: 1 and 3 hang off the
+# root's child
+PARENTS = (0, 0, 1, 1, 2)
 
 
 @pytest.mark.parametrize("kw", [
     {},
     {"num_joints": 4, "use_global_offset": False},     # EgoCap-style heads
     {"num_rot_heatmap": 3},                            # tail-aligned bridges
-], ids=["unrealego", "no_global", "fewer_limbs"])
+    {"skel_layer": "LSTM", "parents": PARENTS},
+    {"skel_layer": "LSTMSplit", "parents": PARENTS},
+    {"skel_layer": "LSTMNoRel", "parents": PARENTS},
+    {"skel_layer": "None"},
+    {"skel_layer": "NoneNoRel"},
+    {"pu_semantics": "tree", "parents": PARENTS},
+    {"num_pu_layers": 1},
+    {"num_pu_layers": 3},
+], ids=["unrealego", "no_global", "fewer_limbs", "lstm", "lstm_split",
+        "lstm_norel", "none", "none_norel", "pu_tree", "pu_1_layer",
+        "pu_3_layers"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_matches_jax(dtype, kw):
     kw_all = {**LIFTER_SMALL, **kw}
@@ -78,7 +92,7 @@ def test_limb_encoder_matches_jax():
                                atol=1e-5 * np.abs(ref).max())
 
 
-def test_only_the_pu_skeleton_is_ported():
-    with pytest.raises(NotImplementedError):
-        lifter_from_jax(lifter_vars(), 3, device="cpu", skel_layer="LSTM",
+def test_unknown_skel_layer_raises():
+    with pytest.raises(ValueError, match="GRU"):
+        lifter_from_jax(lifter_vars(), 3, device="cpu", skel_layer="GRU",
                         **LIFTER_SMALL)

@@ -2,7 +2,8 @@
 against the JAX package's `LifterTask`, at a small size: UnrealEgo with
 15 heatmaps of 16 x 16 (64 x 64 stereo RGB, resnet18 frozen nets), the
 full-width Grid-ViT (1024 x 3 layers) over 36 tokens, hidden 8 (PU
-hidden 32), batch 2, AdamW with decoupled decay under cos_anneal_warmup.
+hidden 32), batch 2, AdamW with decoupled decay under cos_anneal_warmup;
+and the LSTM tree walk under Prodigy.
 
 The JAX state is carried into the port by `compat.from_jax.
 task_state_from_jax` (weights, running statistics, step and Adam
@@ -48,6 +49,10 @@ IPE = 2                # iterations per epoch: lr 0, then warm up, then cosine
 # the budgets, and a fault of the step's semantics still moves parameters
 # by the order of lr a step.
 LR = 1e-4
+# Prodigy's estim_lr and numerator_weighted after three steps: sums over
+# every parameter of gradient x parameter moves, with optax's f32 bias
+# correction (tests/test_torch_optim.py)
+PRODIGY_RTOL = 1e-3
 FIELDS = dict(model="egotap_autoencoder", num_heatmap=15,
               num_rot_heatmap=15, heatmap_type="sin", skel_layer="PU",
               ae_hidden_size=8, load_size_heatmap=(16, 16), batch_size=2,
@@ -161,6 +166,34 @@ def test_continuation_matches_jax(jax_run):
     state = _run_port(state, LifterTask(cfg, device="cpu"), batches[2:],
                       losses[2:])
     _check_state(state, states[4])
+
+
+def test_lstm_prodigy_trajectory_matches_jax():
+    """skel_layer "LSTM" (the Config default: the tree walk) under
+    Prodigy: three f32 steps from a JAX state carried by
+    `task_state_from_jax` (the LSTM weights and Prodigy's fields), every
+    loss, then the state and Prodigy's scalars (PRODIGY_RTOL)."""
+    cfg, jcfg = _configs(skel_layer="LSTM", optimizer_type="Prodigy",
+                         d_coef=2.0)
+    task = JaxLifterTask(jcfg)
+    state = task.init_state(jax.random.PRNGKey(1), IPE,
+                            heatmap_vars=heatmap_vars(15, 64),
+                            rot_heatmap_vars=heatmap_vars(30, 64))
+    batches = _batches(3, seed=2)
+    port = task_state_from_jax(_snapshot(state), cfg, IPE, device="cpu")
+    assert torch.equal(port.opt.trees["params0"][
+        "skel_sequential_layer.lstm.weight_hh_l1"],
+        port.net.skel_sequential_layer["lstm"].weight_hh_l1)
+    port_task = LifterTask(cfg, device="cpu")
+    for b in batches:
+        state, ref = task.train_step(
+            state, {k: jnp.asarray(v) for k, v in b.items()})
+        port, loss = port_task.train_step(port, b)
+        _check_losses(loss, ref)
+    _check_state(port, _snapshot(state))
+    for field, got in port.opt.scalars.items():
+        want = float(getattr(state.opt_state, field))
+        assert float(got) == pytest.approx(want, rel=PRODIGY_RTOL), field
 
 
 def test_bf16_step_matches_jax(jax_run):

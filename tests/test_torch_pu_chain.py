@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from egotap_tpu.models.cells import PUChain as JaxPUChain
+from egotap_tpu_torch.models import cells
 from egotap_tpu_torch.models.cells import PUChain
 from egotap_tpu_torch.ops import kernel_errors, pu_kernel
 
@@ -21,11 +22,11 @@ B, J, IN, H = 3, 6, 32, 64
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 
 
-def _setup(dtype, seed=0, j=J):
+def _setup(dtype, seed=0, j=J, layers=2, **kw):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((B, j, IN)).astype(np.float32)
     br = rng.standard_normal((B, j, IN)).astype(np.float32)
-    model = JaxPUChain(IN, IN, H, 2, semantics="chain")
+    model = JaxPUChain(IN, IN, H, layers, **kw)
     params = jax.tree.map(np.asarray, model.init(
         jax.random.PRNGKey(seed), jnp.zeros((1, j, IN)),
         jnp.zeros((1, j, IN)))["params"])
@@ -35,10 +36,10 @@ def _setup(dtype, seed=0, j=J):
     return params, x, br, np.asarray(ref, np.float32)
 
 
-def _port_module(params):
-    m = PUChain(IN, IN, H, 2)
+def _port_module(params, layers=2, **kw):
+    m = PUChain(IN, IN, H, layers, **kw)
     sd = {}
-    for i in (0, 1):
+    for i in range(layers):
         for name, p in params[f"cell{i}"].items():
             sd[f"layers.{i}.{name}.weight"] = torch.from_numpy(
                 np.ascontiguousarray(p["kernel"].T))
@@ -172,8 +173,40 @@ def test_interval_schedule_matches_plain_and_jax(dtype, j):
         assert not within(interval_schedule(*args, a1_lag=1))
 
 
-@pytest.mark.parametrize("kw", [dict(semantics="tree"), dict(num_layers=3)])
-def test_uncovered_configurations_raise(kw):
-    with pytest.raises(NotImplementedError):
-        PUChain(IN, IN, H, **kw)
+# a branching tree over the J = 6 walked joints (root first)
+PARENTS = (0, 0, 1, 1, 2, 3, 3)
+
+
+@pytest.mark.parametrize("layers,kw", [
+    (2, dict(semantics="tree", parents=PARENTS)),
+    (3, dict(semantics="tree", parents=PARENTS)),
+    (1, {}), (3, {}),
+], ids=["tree", "tree_3_layers", "chain_1_layer", "chain_3_layers"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_walk_matches_jax_scan(dtype, layers, kw, monkeypatch):
+    """The configurations kernel C does not cover (tree semantics, a
+    layer count other than 2) walk the joints in plain PyTorch, on the
+    card as on the CPU (the kernel's wrapper is never called), and hold
+    to JAX's scan within TOL."""
+    params, x, br, ref = _setup(dtype, layers=layers, **kw)
+    dt = getattr(torch, dtype)
+    module = _port_module(params, layers, **kw)
+    assert not module.uses_kernel
+
+    def refuse(*args):
+        raise AssertionError("kernel C called")
+    monkeypatch.setattr(cells, "pu_chain_fused", refuse)
+    out = module(torch.from_numpy(x).to(dt), torch.from_numpy(br).to(dt))
+    assert out.dtype == dt
+    _check(out, ref, dtype)
+
+
+def test_tree_without_parents_raises():
+    with pytest.raises(ValueError, match="parents"):
+        PUChain(IN, IN, H, semantics="tree")
+
+
+def test_unknown_semantics_raises():
+    with pytest.raises(ValueError, match="semantics"):
+        PUChain(IN, IN, H, semantics="graph")
 
