@@ -123,21 +123,51 @@ Exits non-zero, printing no result, when there is no card. Phases:
    so that it moves the parameters) card vs CPU: losses (rtol 1e-4),
    the lifter's gradient (1e-3 relative L2), the parameters after the
    update (1e-5 of their max). (c) `cli.train --preset egotap_unrealego
-   --skel_layer LSTM --optimizer_type DAdam` (2 epochs) on phase 8's
+   --skel_layer LSTM --optimizer_type DAdam` (1 epoch) on phase 8's
    dataset, warm-started from phase 8's stage-1 ckpt_best (the preset's
    lr 0 at step 0 is DAdam's zero-denominator step), then `cli.test`:
    launches A 6, B 3, C 0 a step or eval batch, finite epoch losses,
    the run's artifacts, DAdam's state in ckpt_best, and ckpt_best in a
    fresh f32 template giving pred_pose.npy's rows within 1e-6 of their
    max (one tensor perturbed rejected).
-10. One JSON line with every kernel's numbers (with each bf16 kernel's
+10. Bridges for a trained model and parallelism at full width (the
+   egotap_unrealego preset; every rank and shard on the one card, so a
+   check of what runs, not a speed for several cards). (a) 2 bf16
+   stage-2 steps of batch 32 saved as ckpt_best: `Predictor.
+   from_checkpoint` bit for bit `LifterTask.eval_step`'s pose; the
+   reference .pth export (timed) through `from_reference_checkpoints`
+   bit for bit the same; a torch AdamW over the lifter stepped twice
+   under a LambdaLR of the port's schedule, saved and resumed by the
+   port (moments bit for bit torch's, one more f32 step within 1e-4 of
+   torch's, the moments one position late rejected);
+   `load_partial_weights(parts=["pos_heatmap_encoder"])` loads exactly
+   those keys. (b) The bf16 step through one NCCL rank bit for bit the
+   single-process step (then both timed); `python -m
+   egotap_tpu_torch.parallel.dryrun` with two gloo ranks sharing cuda:0
+   for an f32 stage-2 step (16 rows a rank) and an f32 stage-1 step (8
+   rows a rank) against one process at the global batch (losses rtol
+   1e-4, gradients 1e-3 rel-L2, running statistics 1e-4, the ranks bit
+   for bit equal), each with the per-rank-statistics control rejected;
+   two ranks of `cli.train` (one epoch) and `cli.test` on phase 8's
+   dataset: one set of files, test means within 1e-6 of a 1-rank
+   `cli.test`. (c) Kernel B at a shard's (16, 576, 512) with 4 heads
+   against its plain version, timed; `Predictor.shard(2, num_model=2,
+   devices=[cuda:0] * 4)` in f32, bf16 and calibrated int8 at batch 32
+   and a ragged 31 against the same predictor unsharded (1e-5, and
+   phase 3's bf16 and int8 budgets), launches a forward A 12, B 12, C 2;
+   the bf16 forward's time unsharded and over 1 x 2 and 2 x 2 shards.
+   Each part's wall time.
+11. One JSON line with every kernel's numbers (with each bf16 kernel's
    launches per training and eval step, A's per stage-1 step, the
    backward recompute time a launch of A (stage 1), B and C, the
-   launches of A, B and C in each CLI run of phase 8, and each bf16
+   launches of A, B and C in each CLI run of phase 8, each bf16
    kernel's launches per LSTM training step and in the LSTM CLI runs of
-   phase 9), then the result line.
+   phase 9, and each kernel's launches in the one-NCCL-rank training
+   step and in the sharded forward of phase 10, with a row for B at 4
+   heads), then the result line.
 """
 
+import functools
 import json
 import math
 import statistics
@@ -631,27 +661,16 @@ def phase_kernels(torch, F, card):
     return rows
 
 
-def wrappers():
-    """Every kernel wrapper, by the name the JSON line gives it."""
-    from egotap_tpu_torch.ops.attention import (multihead_attention,
-                                                multihead_attention_packed)
-    from egotap_tpu_torch.ops.fused_layer1 import fused_layer1_int8
-    from egotap_tpu_torch.ops.pu_kernel import pu_chain_fused
-    from egotap_tpu_torch.ops.upsample import upsample2x_align_corners
-    return {"upsample": upsample2x_align_corners,
-            "attention": multihead_attention_packed,
-            "pu_chain": pu_chain_fused,
-            "attention_unpacked": multihead_attention,
-            "fused_layer1": fused_layer1_int8}
-
-
 def reset_counts():
-    for w in wrappers().values():
-        w.launches = 0
+    from egotap_tpu_torch.ops import launch_counts
+    launch_counts(reset=True)
 
 
 def read_counts():
-    return {n: w.launches for n, w in wrappers().items()}
+    """Each kernel wrapper's launches, by the name the JSON line gives
+    it."""
+    from egotap_tpu_torch.ops import launch_counts
+    return launch_counts()
 
 
 # launches per Predictor forward, in every precision
@@ -1527,9 +1546,10 @@ def cli_units(cfg, make_loader, epochs):
                   for c in MOTION_CATEGORIES))
 
 
-def check_run_artifacts(cfg):
-    """A training run's files (see the module docstring, phase 8); returns
-    its per-epoch ``Time/`` scalars from the summary."""
+def check_run_artifacts(cfg, epochs=2):
+    """A training run's files (see the module docstring, phase 8) after
+    ``epochs`` epochs; returns its per-epoch ``Time/`` scalars from the
+    summary."""
     import os
     from egotap_tpu_torch.train import state as state_lib
     exp = cfg.experiment_dir
@@ -1538,8 +1558,8 @@ def check_run_artifacts(cfg):
         if not os.path.isfile(os.path.join(exp, name)):
             raise AssertionError(f"{cfg.experiment_name}: no {name}")
     if not (state_lib.checkpoint_exists(exp, "best")
-            and state_lib.checkpoint_exists(exp, 2)
-            and not state_lib.checkpoint_exists(exp, 1)):
+            and state_lib.checkpoint_exists(exp, epochs)
+            and not state_lib.checkpoint_exists(exp, epochs - 1)):
         raise AssertionError(f"{cfg.experiment_name}: checkpoints "
                              f"{sorted(os.listdir(exp))}")
     result = open(os.path.join(exp, "test_result.txt")).read()
@@ -1798,6 +1818,7 @@ PARAM_TOL = 1e-5                   # f32 parameters after the update
 CLI_VARIANT = ["--preset", "egotap_unrealego", "--skel_layer", "LSTM",
                "--optimizer_type", "DAdam", "--experiment_name",
                "egotap_unrealego_lstm_dadam"]
+CLI_VARIANT_EPOCHS = 1     # one epoch: phase 10's runs take the time
 
 
 def variant_lifter(torch, fields, seed):
@@ -2003,22 +2024,24 @@ def variant_cli(torch, card, tmp):
     from egotap_tpu_torch.core.config import Config
     from egotap_tpu_torch.data.pipeline import make_loader
     from egotap_tpu_torch.train import state as state_lib
-    argv = CLI_VARIANT + cli_common(tmp)
+    argv = CLI_VARIANT + cli_common(tmp) + [
+        "--niter_decay", str(CLI_VARIANT_EPOCHS - 1)]
     cfg = Config.from_args(argv)
     per_unit = {**PER_UNIT["egotap_autoencoder"], "pu_chain": 0}
     reports = []
     wall, counts, _ = run_cli(torch, cli_train.main, argv, epoch_callback=(
         lambda r: reports.append((r["bad_loss"], r["train_losses"]))))
-    units = cli_units(cfg, make_loader, 2)
+    units = cli_units(cfg, make_loader, CLI_VARIANT_EPOCHS)
     losses = [v for _, d in reports for v in d.values()]
     print(f"  cli.train {' '.join(CLI_VARIANT[:6])}: returned after "
           f"{wall:.2f} s; launches {counts} over {units} training steps and "
           f"eval batches; epoch losses {[r[1] for r in reports]}")
     expect_counts(counts, per_unit, units, "cli.train (LSTM, DAdam)", None)
-    if len(reports) != 2 or any(bad for bad, _ in reports) or not losses \
+    if len(reports) != CLI_VARIANT_EPOCHS or any(
+            bad for bad, _ in reports) or not losses \
             or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"cli.train (LSTM, DAdam): reports {reports}")
-    check_run_artifacts(cfg)
+    check_run_artifacts(cfg, CLI_VARIANT_EPOCHS)
     saved = state_lib.read_checkpoint(os.path.join(cfg.experiment_dir,
                                                    "ckpt_best"))
     opt = saved["opt"]
@@ -2071,6 +2094,540 @@ def phase_variants(torch, card, tmp):
     cli = variant_cli(torch, card, tmp)
     print(f"  (c) took {time.perf_counter() - t0:.1f} s")
     return {"forward_ms": forwards, "train_counts": train_counts, "cli": cli}
+
+
+# bridges for a trained model and parallelism at full width (phase 10):
+# the egotap_unrealego preset; one H100 holds every rank and shard, so
+# these runs show that the code launches and computes the right thing on
+# the card, not a speed for several cards
+BRIDGE_STEPS = 2
+# a sharded Predictor over 2 data x 2 model shards: each replica's two
+# heatmap nets (A, 3 a net) and PU chain (C), and its Grid-ViT's 3 blocks
+# on each model shard (B at 4 heads)
+TP_DATA, TP_MODEL = 2, 2
+PER_TP_FORWARD = {"upsample": 6 * TP_DATA,
+                  "attention": 3 * TP_MODEL * TP_DATA,
+                  "pu_chain": TP_DATA, "attention_unpacked": 0,
+                  "fused_layer1": 0}
+# sharded against unsharded pose, relative to max: f32 (row-parallel
+# partial sums in another order), then phase 3's bf16 and int8 budgets
+SHARD_TOL = {"f32": 1e-5, "bf16": BF16_POSE_TOL, "int8": INT8_POSE_TOL}
+STATE_ATOL = 1e-4         # parameters after a step (PARITY_TABLE backward)
+DP_WAIT = 420             # seconds, each 2-rank run
+CLI_RTOL = 1e-6           # 2-rank test means against 1 rank's
+
+
+def check_equal(label, got, want):
+    """Two poses (numpy) bit for bit."""
+    import numpy as np
+    if got.shape != want.shape or not np.array_equal(got, want):
+        err, _ = max_dev(got, want)
+        raise AssertionError(f"{label}: not bit for bit equal "
+                             f"(max_abs_err {err:.3e})")
+    print(f"  {label}: bit for bit equal, pose {got.shape}")
+
+
+def reference_optimizer_check(torch, cfg, net, grads, tmp, card):
+    """Phase 10 (a) 3: a reference-style torch AdamW over a copy of the
+    lifter, stepped twice with ``grads`` under a LambdaLR of the port's
+    schedule, saved as .pth and resumed by the port; then one more f32
+    step of each; then the control with the moments one position late."""
+    import copy
+    import os
+    from egotap_tpu_torch.compat import reference
+    from egotap_tpu_torch.train.optim import make_optimizer, make_schedule
+    sched = make_schedule(cfg, TRAIN_ITERS_PER_EPOCH)
+    t_net = copy.deepcopy(net)
+    params = dict(t_net.named_parameters())
+    topt = torch.optim.AdamW(t_net.parameters(), lr=cfg.lr,
+                             eps=cfg.opt_eps, weight_decay=cfg.weight_decay)
+    tsched = torch.optim.lr_scheduler.LambdaLR(
+        topt, lambda s: sched(s) / cfg.lr)
+
+    def torch_step():
+        for n, p in params.items():
+            p.grad = grads[n]
+        topt.step()
+        tsched.step()
+    for _ in range(BRIDGE_STEPS):
+        torch_step()
+    paths = [os.path.join(tmp, f"best_{k}.pth") for k in ("optim_0", "sched")]
+    torch.save(topt.state_dict(), paths[0])
+    torch.save(tsched.state_dict(), paths[1])
+
+    def resume(shift=0):
+        p_net = copy.deepcopy(t_net)
+        opt = make_optimizer(cfg, TRAIN_ITERS_PER_EPOCH)
+        opt.init(dict(p_net.named_parameters()))
+        osd = torch.load(paths[0], map_location="cuda", weights_only=True)
+        order = osd["param_groups"][0]["params"]
+        osd["param_groups"][0]["params"] = order[-shift:] + order[:-shift] \
+            if shift else order
+        got = reference.load_reference_optimizer(
+            opt, p_net, osd, torch.load(paths[1], weights_only=True),
+            cfg.lr_policy, TRAIN_ITERS_PER_EPOCH)
+        return p_net, opt, got
+
+    def moments_differ(opt):
+        bad = []
+        for n, p in params.items():
+            st = topt.state.get(p)
+            for field, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+                want = st[key] if st else torch.zeros_like(p)
+                if not torch.equal(opt.trees[field][n], want):
+                    bad.append(f"{field} {n}")
+        return bad
+    p_net, opt, (count, step) = resume()
+    bad = moments_differ(opt)
+    unused = sum(1 for p in params.values() if p not in topt.state)
+    print(f"  reference optimizer: torch AdamW x {BRIDGE_STEPS} steps over "
+          f"{len(params)} parameters ({unused} never stepped), resumed at "
+          f"count {count}, training step {step}; moments differing from "
+          f"torch's: {len(bad)}")
+    if bad or count != BRIDGE_STEPS or step != BRIDGE_STEPS:
+        raise AssertionError(f"reference optimizer resume: {bad[:3]}")
+    try:
+        _, shifted, _ = resume(shift=1)
+        caught = bool(moments_differ(shifted))
+        how = "moments differ"
+    except ValueError as e:
+        caught, how = "shape" in str(e), str(e)[:60]
+    print(f"    control, moments one position late: "
+          f"{'rejected' if caught else 'NOT rejected  FAIL'} ({how})")
+    if not caught:
+        raise AssertionError("the shifted-moments control was not rejected")
+    torch_step()
+    opt.step(dict(p_net.named_parameters()), grads)
+    dev = max(float((p - params[n]).detach().abs().max())
+              for n, p in p_net.named_parameters())
+    print(f"  one more f32 step, port vs torch.optim: max |param dev| "
+          f"{dev:.3e} (tol {STATE_ATOL:.0e}) [{card}]")
+    if dev > STATE_ATOL:
+        raise AssertionError("the resumed step does not track torch.optim")
+
+
+def phase_bridges(torch, card, tmp):
+    """Phase 10 (a): a stage-2 state trained BRIDGE_STEPS steps at batch
+    32 in bf16 and saved; `Predictor.from_checkpoint`, the reference .pth
+    export and `from_reference_checkpoints`, the reference optimizer and
+    `load_partial_weights`."""
+    import os
+    from egotap_tpu_torch.compat import reference
+    from egotap_tpu_torch.core.config import Config
+    from egotap_tpu_torch.serving import Predictor, build_nets
+    from egotap_tpu_torch.train import state as state_lib
+    from egotap_tpu_torch.train.tasks import LifterTask
+
+    cfg = Config.from_preset("egotap_unrealego")
+    task = LifterTask(cfg, device="cuda")
+    state = task.init_state(seed=0, iters_per_epoch=TRAIN_ITERS_PER_EPOCH)
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    for _ in range(BRIDGE_STEPS):
+        state, _ = task.train_step(state, train_inputs(torch, gen, 32))
+    exp = os.path.join(tmp, "bridges")
+    t0 = time.perf_counter()
+    state_lib.save_checkpoint(exp, "best", state)
+    print(f"  {BRIDGE_STEPS} bf16 steps trained, ckpt_best written in "
+          f"{time.perf_counter() - t0:.2f} s")
+    batch = train_inputs(torch, gen, 32)
+    want = task.eval_step(state, batch)["pred_pose"].cpu().numpy()
+    pred = Predictor.from_checkpoint(cfg, exp, bf16=True)
+    reset_counts()
+    got = pred(batch["input_rgb"])
+    if read_counts() != PER_FORWARD:
+        raise AssertionError(f"from_checkpoint: launches {read_counts()}")
+    check_equal("Predictor.from_checkpoint vs LifterTask.eval_step (bf16)",
+                got, want)
+    del pred
+    t0 = time.perf_counter()
+    paths = reference.export_reference_checkpoints(state,
+                                                   os.path.join(tmp, "pth"))
+    export_s = time.perf_counter() - t0
+    size = sum(os.path.getsize(p) for p in paths)
+    print(f"  export: {[os.path.basename(p) for p in paths]}, "
+          f"{size / 1e6:.1f} MB in {export_s:.2f} s = "
+          f"{size / 1e6 / export_s:.0f} MB/s [{card}]")
+    by_name = {os.path.basename(p)[len("best_net_"):-4]: p for p in paths}
+    pred = Predictor.from_reference_checkpoints(
+        by_name["HeatMap"], by_name["RotHeatMap"], by_name["AutoEncoder"],
+        preset="UnrealEgo", bf16=True)
+    check_equal("from_reference_checkpoints of the export vs "
+                "from_checkpoint", pred(batch["input_rgb"]), got)
+    del pred
+    _, grads = task.gradients(state, batch)
+    reference_optimizer_check(torch, cfg, state.net, grads, tmp, card)
+    del grads
+    fresh = build_nets(cfg)[2].cuda()
+    before = {k: v.clone() for k, v in fresh.state_dict().items()}
+    keys = reference.load_partial_weights(
+        fresh, os.path.join(exp, "ckpt_best"), ["pos_heatmap_encoder"])
+    saved = state_lib.read_checkpoint(os.path.join(exp, "ckpt_best"))["net"]
+    saved = {k: v.cuda() for k, v in saved.items()}
+    want_keys = [k for k in saved if "pos_heatmap_encoder" in k]
+    wrong = [k for k, v in fresh.state_dict().items()
+             if not torch.equal(v, saved[k] if k in keys else before[k])]
+    print(f"  load_partial_weights(parts=['pos_heatmap_encoder']): "
+          f"{len(keys)} of {len(saved)} keys loaded, {len(wrong)} wrong")
+    if keys != want_keys or wrong:
+        raise AssertionError(f"partial weights: {wrong[:3]}")
+    del state, task, fresh
+    empty_cache(torch)
+
+
+def snapshot(torch, state):
+    """CPU copies of a state's nets, by a flat name."""
+    out = {f"net.{k}": v.cpu() for k, v in state.net.state_dict().items()}
+    for key, net in state.frozen.items():
+        out.update({f"{key}.{k}": v.cpu()
+                    for k, v in net.state_dict().items()})
+    return out
+
+
+def nccl_world_one(torch, card, tmp):
+    """Phase 10 (b) 1: the stage-2 step (phase 5's configuration, bf16,
+    batch 32) through one NCCL rank against the single-process step from
+    the same state, bit for bit; then 5 more of each, timed. Returns the
+    rank's launches of one step."""
+    import os
+    from egotap_tpu_torch.core.config import Config
+    from egotap_tpu_torch.parallel import mesh
+    from egotap_tpu_torch.train.tasks import LifterTask
+
+    cfg = Config.from_preset("egotap_unrealego")
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    batches = [train_inputs(torch, gen, 32) for _ in range(6)]
+    store = torch.distributed.FileStore(os.path.join(tmp, "nccl1"), 1)
+    dp = mesh.init("cuda:0", rank=0, world_size=1, store=store,
+                   backend="nccl")
+    try:
+        runs = {}
+        for label, ranks in (("single", None), ("nccl", dp)):
+            task = LifterTask(cfg, device="cuda", dp=ranks)
+            state = task.init_state(seed=0,
+                                    iters_per_epoch=TRAIN_ITERS_PER_EPOCH)
+            reset_counts()
+            state, loss = task.train_step(state, batches[0])
+            torch.cuda.synchronize()
+            runs[label] = (task, state, read_counts(),
+                           {k: float(v) for k, v in loss.items()},
+                           snapshot(torch, state))
+        diff = differing(runs["nccl"][4], runs["single"][4])
+        same_loss = runs["nccl"][3] == runs["single"][3]
+        print(f"  one NCCL rank vs one process, one bf16 step of batch 32: "
+              f"losses {'equal' if same_loss else 'DIFFER'} "
+              f"{runs['nccl'][3]}, {len(diff)} of {len(runs['nccl'][4])} "
+              f"state tensors differ; launches {runs['nccl'][2]}")
+        if diff or not same_loss:
+            raise AssertionError(f"NCCL world 1 step: {diff[:3]}")
+        times = {"single": [], "nccl": []}
+        for b in batches[1:]:
+            for label in ("single", "nccl"):
+                task, state = runs[label][:2]
+                s, e = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+                s.record()
+                task.train_step(state, b)
+                e.record()
+                times[label].append((s, e))
+        torch.cuda.synchronize()
+        ms = {k: statistics.median(s.elapsed_time(e) for s, e in v)
+              for k, v in times.items()}
+        print(f"  step median over 5, interleaved: one process "
+              f"{ms['single']:.3f} ms, one NCCL rank {ms['nccl']:.3f} ms "
+              f"({100 * (ms['nccl'] / ms['single'] - 1):+.2f}%) [{card}]")
+        return runs["nccl"][2]
+    finally:
+        mesh.shutdown()
+        empty_cache(torch)
+
+
+def dp_job(torch, tmp, name, cfg_fields, task_cls, feed, seed):
+    """Write a job for the 2-rank step (its initial state and batch) and
+    take the single-process step of it here: (dryrun arguments, losses,
+    flat gradient, state after, running-statistics names)."""
+    import os
+
+    import numpy as np
+    from egotap_tpu_torch.core.config import Config
+    from egotap_tpu_torch.train import state as state_lib
+    cfg = Config(**cfg_fields).derive()
+    task = task_cls(cfg, device="cuda")
+    state = task.init_state(seed=seed, iters_per_epoch=1)
+    state_lib.save_checkpoint(os.path.join(tmp, name), "best", state)
+    path = os.path.join(tmp, f"{name}.npz")
+    np.savez(path, **{k: v.cpu().numpy() for k, v in feed.items()})
+    losses, grads = task.step_gradients(state, feed)
+    state.opt.step(dict(state.net.named_parameters()), grads)
+    flat = flat_grad(torch, grads, grads)
+    names = {k: g is not None for k, g in grads.items()}
+    after = snapshot(torch, state)
+    del task, state, grads
+    empty_cache(torch)
+    args = ["--config", json.dumps({k: list(v) if isinstance(v, tuple)
+                                    else v for k, v in cfg_fields.items()}),
+            "--init", os.path.join(tmp, name, "ckpt_best"), "--batch", path]
+    return dict(args=args, losses={k: float(v) for k, v in losses.items()},
+                flat=flat, names=names, after=after,
+                rows=len(feed["input_rgb"]))
+
+
+def saved_state(saved):
+    """A rank's saved nets (`parallel.dryrun`), named as `snapshot`."""
+    out = {f"net.{k}": v for k, v in saved["net"].items()}
+    for key, sd in saved["frozen"].items():
+        out.update({f"{key}.{k}": v for k, v in sd.items()})
+    return out
+
+
+def run_dryrun(args, wait=DP_WAIT):
+    """``python -m egotap_tpu_torch.parallel.dryrun`` with two ranks on
+    cuda:0 over gloo; its wall time."""
+    import os
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "egotap_tpu_torch.parallel.dryrun",
+         "--nproc", "2", "--device", "cuda:0", "--backend", "gloo",
+         "--timeout", str(wait)] + args,
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=wait + 60)
+    if run.returncode:
+        print(run.stdout[-4000:], run.stderr[-6000:])
+        raise AssertionError(f"2-rank run failed ({run.returncode})")
+    return time.perf_counter() - t0
+
+
+def phase_data_parallel(torch, card, tmp, cli_tmp):
+    """Phase 10 (b): one NCCL rank; two gloo ranks sharing cuda:0 for a
+    stage-2 and a stage-1 f32 step against one process at the global
+    batch, with the per-rank-statistics controls; a 2-rank cli.train +
+    cli.test on phase 8's dataset against a 1-rank cli.test."""
+    import os
+
+    import numpy as np
+    from egotap_tpu_torch.cli import test as cli_test
+    from egotap_tpu_torch.core.config import PRESETS, Config
+    from egotap_tpu_torch.data.pipeline import make_loader
+    from egotap_tpu_torch.train.tasks import HeatmapTask, LifterTask
+    nccl_counts = nccl_world_one(torch, card, tmp)
+
+    out = os.path.join(tmp, "dp2")
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    jobs = {}
+    stage2 = dict(PRESETS["egotap_unrealego"], use_amp=False,
+                  data_parallel=2, path_to_trained_heatmap=None)
+    jobs["stage 2"] = dp_job(torch, out, "stage2", stage2, LifterTask,
+                             train_inputs(torch, gen, 32), 1)
+    stage1 = dict(PRESETS["unrealego_heatmap_joint"], use_amp=False,
+                  data_parallel=2)
+    feed1 = {"input_rgb": torch.randn(16, 2, 256, 256, 3, generator=gen,
+                                      device="cuda"),
+             **{f"gt_heatmap_{s}": torch.rand(16, 64, 64, 15, generator=gen,
+                                              device="cuda")
+                for s in ("left", "right")}}
+    jobs["stage 1"] = dp_job(torch, out, "stage1", stage1, HeatmapTask,
+                             feed1, 2)
+    # the CLIs over two ranks on phase 8's dataset, one epoch, in the same
+    # ranks after the steps
+    argv = (["--preset", "egotap_unrealego"] + cli_common(cli_tmp)
+            + ["--niter_decay", "0", "--experiment_name", "dp2"])
+    wall = run_dryrun(["--out", out, "--mode", "step", "cli", "--control"]
+                      + [a for job in jobs.values() for a in job["args"]]
+                      + ["--", *argv, "--data_parallel", "2"])
+    print(f"  2 gloo ranks on cuda:0: both steps and their controls, then "
+          f"cli.train + cli.test, in {wall:.1f} s wall (processes "
+          f"included)")
+    for j, (label, job) in enumerate(jobs.items()):
+        after = job["after"]
+        ranks = [torch.load(os.path.join(out, f"rank{r}_{j}.pt"),
+                            weights_only=True) for r in range(2)]
+        controls = [torch.load(os.path.join(out, f"control{r}_{j}.pt"),
+                               weights_only=True) for r in range(2)]
+        got = ranks[0]
+        gap = max(loss_gap(k, got["losses"][k], v)
+                  for k, v in job["losses"].items())
+        mine = torch.cat([got["grads"][k].float().flatten()
+                          for k, has in job["names"].items() if has])
+        rel = float((mine - job["flat"]).norm() / job["flat"].norm())
+        rank0 = saved_state(got)
+        apart = differing(saved_state(ranks[1]), rank0)
+
+        def stats_dev(tensors):
+            return max(float((tensors[k].float() - v.float()).abs().max())
+                       for k, v in after.items()
+                       if k.endswith(("running_mean", "running_var")))
+        dev = stats_dev(rank0)
+        cdev = stats_dev(saved_state(controls[0]))
+        pdev = max(float((rank0[k].float() - v.float()).abs().max())
+                   for k, v in after.items() if v.is_floating_point())
+        print(f"  {label} f32, 2 ranks x {job['rows'] // 2} rows vs one "
+              f"process: loss gap {gap:.3e} (rtol {TRAIN_LOSS_RTOL:.0e}), "
+              f"gradient rel-L2 {rel:.3e} (tol {TRAIN_GRAD_TOL:.0e}), "
+              f"state max dev {pdev:.3e}, running stats {dev:.3e} (tol "
+              f"{STATE_ATOL:.0e}); ranks apart in {len(apart)} tensors; "
+              f"rank 0's step {got['seconds']:.3f} s (a fresh process's "
+              f"first), the control's after it {controls[0]['seconds']:.3f}"
+              f" s; launches "
+              f"{got['launches']} [{card}; one card shared by two ranks, "
+              f"no multi-GPU result]")
+        if gap > TRAIN_LOSS_RTOL or rel > TRAIN_GRAD_TOL or apart \
+                or dev > STATE_ATOL:
+            raise AssertionError(f"2-rank {label} step disagrees")
+        print(f"    control, BatchNorm statistics per rank: running stats "
+              f"{cdev:.3e} -> "
+              f"{'rejected' if cdev > STATE_ATOL else 'NOT rejected  FAIL'}")
+        if not cdev > STATE_ATOL:
+            raise AssertionError(f"{label}: the per-rank control passed")
+    del jobs
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"),
+                        weights_only=True) for r in range(2)]
+    cfg = Config.from_args(argv)
+    exp = cfg.experiment_dir
+    check_run_artifacts(cfg, epochs=1)
+    lines = [json.loads(x) for x in
+             open(os.path.join(exp, "summary", "metrics.jsonl"))]
+    entries = [(x["tag"], x["step"]) for x in lines]
+    files = sorted(os.listdir(exp))
+    pred = np.load(os.path.join(cfg.results_dir, "pred_pose.npy"))
+    print(f"  2-rank cli.train + cli.test: files "
+          f"{files}, {len(entries)} summary entries, pred_pose.npy "
+          f"{pred.shape}; test means {ranks[0]['metrics']}, "
+          f"{ranks[0]['pairs_per_s']:.1f} pairs/s over both ranks; "
+          f"launches on rank 0 {ranks[0]['launches']} [{card}; one card "
+          f"shared by two ranks]")
+    if (len(entries) != len(set(entries))
+            or ranks[0]["metrics"] != ranks[1]["metrics"]
+            or pred.shape != (2 * CLI_FRAMES, 16, 3)):
+        raise AssertionError("2-rank CLI run: files or metrics")
+    shard = functools.partial(make_loader, rank=0, world=2)
+    expect_counts(ranks[0]["launches"], PER_UNIT[cfg.model],
+                  cli_units(cfg, shard, 1) + cli_units(cfg, shard, 0),
+                  "2-rank cli.train + cli.test, rank 0", None)
+    one, _ = cli_test.main(argv)
+    worst = max(abs(ranks[0]["metrics"][k] - v) / abs(v)
+                for k, v in one.items())
+    print(f"  1-rank cli.test on the same ckpt_best: {one}; largest "
+          f"relative gap {worst:.3e} (tol {CLI_RTOL:.0e})")
+    if worst > CLI_RTOL:
+        raise AssertionError("2-rank and 1-rank test means disagree")
+    empty_cache(torch)
+    return nccl_counts
+
+
+def attention_tp_rows(torch, F, card):
+    """Kernel B at a tensor-parallel shard's shape, (16, 576, 512) with 4
+    heads (a data shard's 16 rows, half the heads), against its plain
+    version within its TOL, timed, in both dtypes."""
+    from egotap_tpu_torch.ops import attention
+    from egotap_tpu_torch.ops.attention import (attention_packed_plain,
+                                                multihead_attention_packed)
+    g = torch.Generator(device="cuda").manual_seed(33)
+    b, s, heads, hd = 16, 576, 4, 128
+    rows, failures = {}, []
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(b, s, heads * hd, generator=g,
+                               device="cuda").to(dt) for _ in range(3))
+        ref = attention_packed_plain(q, k, v, heads)
+        err = check(f"attention {dt} {(b, s, heads * hd)}, {heads} heads",
+                    multihead_attention_packed(q, k, v, heads), ref,
+                    attention.TOL[dt], failures)
+        split = [x.view(b, s, heads, hd).transpose(1, 2) for x in (q, k, v)]
+        ms = time_ms(torch, lambda: multihead_attention_packed(q, k, v, heads))
+        pms = time_ms(torch, lambda: attention_packed_plain(q, k, v, heads))
+        lms = time_ms(torch, lambda: F.scaled_dot_product_attention(*split))
+        bound, by = attention_bound(torch, q)
+        print(f"    kernel {ms:.4f} ms, plain {pms:.4f} ms, SDPA {lms:.4f} "
+              f"ms, bound {bound:.4f} ms [{card}]")
+        rows[("attention_tp", dt)] = dict(
+            ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bound,
+            max_abs_err=err, bound_by=by)
+    if failures:
+        raise AssertionError(f"kernel B at 4 heads: {failures}")
+    return rows
+
+
+def forward_ms(pred, rgb, calls=5):
+    """Median wall time of ``calls`` requests after one warm-up, ms."""
+    pred(rgb)
+    t = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        pred(rgb)
+        t.append(time.perf_counter() - t0)
+    return 1e3 * statistics.median(t)
+
+
+def phase_sharded_serving(torch, F, card):
+    """Phase 10 (c): kernel B at the shard's shape, then for f32, bf16
+    and calibrated int8 one `Predictor` served unsharded, then after
+    `shard(2, num_model=2, devices=[cuda:0] * 4)`, at batch 32 and a
+    ragged 31, with the sharded forward's launches; the bf16 forward's
+    time unsharded, over 2 x 2 and over 1 x 2 shards."""
+    from egotap_tpu_torch.serving import Predictor
+    rows = attention_tp_rows(torch, F, card)
+    g = torch.Generator(device="cuda").manual_seed(34)
+    rgb = torch.randn(32, 2, 256, 256, 3, generator=g, device="cuda")
+    calib = [rgb + 0.1 * torch.randn(rgb.shape, generator=g, device="cuda")
+             for _ in range(2)]
+    devices = [torch.device("cuda", 0)] * (TP_DATA * TP_MODEL)
+    counts = {}
+    for label in ("f32", "bf16", "int8"):
+        pred = Predictor(bf16=label != "f32", int8=label == "int8", seed=0)
+        if label == "int8":
+            pred.calibrate(calib)
+        want, want31 = pred(rgb), pred(rgb[:31])
+        times = {"unsharded": forward_ms(pred, rgb)}
+        pred.shard(TP_DATA, num_model=TP_MODEL, devices=devices)
+        pred(rgb)                                     # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        got = pred(rgb)
+        counts[label] = read_counts()
+        if counts[label] != PER_TP_FORWARD:
+            raise AssertionError(f"sharded {label}: launches "
+                                 f"{counts[label]}, expected {PER_TP_FORWARD}")
+        ragged = pred(rgb[:31])
+        err, scale = max_dev(got, want)
+        err31, scale31 = max_dev(ragged, want31)
+        times["2 x 2"] = forward_ms(pred, rgb)
+        print(f"  {label}: sharded 2 data x 2 model vs unsharded: batch 32 "
+              f"max_abs_err {err:.3e}, ragged 31 {err31:.3e} (tol "
+              f"{SHARD_TOL[label]:.0e} x max {scale:.3e}); launches a "
+              f"forward {counts[label]}; forward median "
+              f"{times['unsharded']:.3f} ms unsharded, {times['2 x 2']:.3f} "
+              f"ms sharded [{card}; 4 shards on one card, no multi-GPU "
+              f"result]")
+        if err > SHARD_TOL[label] * scale or \
+                err31 > SHARD_TOL[label] * scale31 or ragged.shape[0] != 31:
+            raise AssertionError(f"sharded {label} disagrees")
+        if label == "bf16":
+            ms = forward_ms(pred.shard(1, num_model=TP_MODEL,
+                                       devices=devices[:TP_MODEL]), rgb)
+            print(f"    bf16 tensor-parallel 1 data x 2 model shards: "
+                  f"{ms:.3f} ms, {100 * (ms / times['unsharded'] - 1):+.1f}% "
+                  f"over unsharded [{card}]")
+        del pred
+        empty_cache(torch)
+    return rows, counts
+
+
+def phase_parallel(torch, F, card, tmp):
+    """Phase 10 (see the module docstring): (a) bridges, (b) data
+    parallelism, (c) sharded serving, each part timed."""
+    import os
+    parts = {}
+    t0 = time.perf_counter()
+    phase_bridges(torch, card, os.path.join(tmp, "p10"))
+    parts["bridges"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dp_counts = phase_data_parallel(torch, card, os.path.join(tmp, "p10"),
+                                    tmp)
+    parts["data parallel"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows, tp_counts = phase_sharded_serving(torch, F, card)
+    parts["sharded serving"] = time.perf_counter() - t0
+    print("  phase 10 parts: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in parts.items()))
+    return {"rows": rows, "dp_counts": dp_counts, "tp_counts": tp_counts}
 
 
 def main() -> int:
@@ -2131,6 +2688,14 @@ def main() -> int:
         print("phase 9: the lifter's other skeleton layers and the "
               "learned-LR optimizers, full width: serving, training, CLIs")
         variants = phase_variants(torch, card, tmp)
+
+        print("phase 10: bridges for a trained model and parallelism, full "
+              "width: checkpoint, export, optimizer resume, partial "
+              "weights; one NCCL rank, two gloo ranks on cuda:0; sharded "
+              "serving")
+        t10 = time.perf_counter()
+        parallel = phase_parallel(torch, F, card, tmp)
+        print(f"  phase 10 in {time.perf_counter() - t10:.1f} s")
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     # launches of each row: the int8 forward's (bf16 compute) for the bf16
     # rows, the f32 forward's for the f32 attention and PU chain rows, and
@@ -2141,6 +2706,13 @@ def main() -> int:
     launches[("fused_layer1", torch.bfloat16)] = fused
     for dt, c in unpacked.items():
         launches[("attention_unpacked", dt)] = c
+    # kernel B at a tensor-parallel shard's 4 heads: its launches a sharded
+    # forward (bf16: the bf16 one; f32: the f32 one)
+    rows.update(parallel["rows"])
+    tp = {torch.bfloat16: parallel["tp_counts"]["bf16"],
+          torch.float32: parallel["tp_counts"]["f32"]}
+    for dt in (torch.float32, torch.bfloat16):
+        launches[("attention_tp", dt)] = tp[dt]["attention"]
 
     meta = {
         "upsample": ("upsample2x_align_corners", "cuda",
@@ -2154,6 +2726,9 @@ def main() -> int:
         "attention_unpacked": ("attention_unpacked", "cuda",
                                "egotap_tpu_torch/csrc/attention.cu",
                                "egotap_tpu/ops/attention.py:43"),
+        "attention_tp": ("attention_packed_4heads", "cuda",
+                         "egotap_tpu_torch/csrc/attention.cu",
+                         "egotap_tpu/ops/attention.py:122"),
         "fused_layer1": ("fused_layer1_int8", "cuda",
                          "egotap_tpu_torch/csrc/fused_layer1.cu",
                          "egotap_tpu/ops/fused_layer1.py:121"),
@@ -2173,7 +2748,8 @@ def main() -> int:
             if extra in r:
                 kernels[-1][extra] = r[extra]
         # the training step (bf16) and the eval step run the bf16 kernels
-        if dt == torch.bfloat16:
+        # (B at 8 heads)
+        if dt == torch.bfloat16 and key != "attention_tp":
             kernels[-1]["train_step_launches"] = \
                 train["counts"][key] / TRAIN_STEPS
             kernels[-1]["eval_step_launches"] = evaluation[key]
@@ -2184,11 +2760,20 @@ def main() -> int:
             kernels[-1]["cli_launches"] = {run: c[key]
                                            for run, c in cli.items()}
         # phase 9: the LSTM lifter's training step (bf16) and its CLI runs
-        if dt == torch.bfloat16:
+        if dt == torch.bfloat16 and key != "attention_tp":
             kernels[-1]["lstm_train_step_launches"] = \
                 variants["train_counts"][key] / TRAIN_STEPS
             kernels[-1]["lstm_cli_launches"] = {
                 run: c[key] for run, c in variants["cli"].items()}
+        # phase 10: one NCCL rank's bf16 training step (B at 8 heads) and
+        # a sharded forward over 2 data x 2 model shards (B at 4 heads;
+        # bf16, and f32 for the f32 rows)
+        dp_n = parallel["dp_counts"].get(key, 0) \
+            if dt == torch.bfloat16 else 0
+        tp_n = {"attention": 0, "attention_tp": tp[dt]["attention"]}.get(
+            key, tp[dt].get(key, 0))
+        kernels[-1]["dp_train_step_launches"] = dp_n
+        kernels[-1]["tp_serve_launches"] = tp_n
         # stage 1 trains in bf16: A's launches a step and its backward
         if (key, dt) == ("upsample", torch.bfloat16):
             kernels[-1]["train1_step_launches"] = \

@@ -5,7 +5,10 @@
         --data_dir /data/UnrealEgoData [--flag value ...]
 
 Runs on the CUDA card; from Python, ``main(argv, device="cpu")`` runs
-the plain PyTorch path on the CPU.
+the plain PyTorch path on the CPU. Data-parallel over N cards, one
+process a card:
+
+    torchrun --nproc_per_node=N -m egotap_tpu_torch.cli.train ...
 """
 
 from __future__ import annotations

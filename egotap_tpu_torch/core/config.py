@@ -9,9 +9,10 @@ option files. A few fields are kept for the flag surface only and read
 by nothing in the port: ``patched_heatmap_ae`` (the released lifter is
 always built, as in the JAX package), ``init_type``, ``use_slurm``,
 ``metadata_dir``, ``project_name``.
-The port trains on one card: ``data_parallel`` above 1 raises in the
-training loop. The device is not a field: the entry points take it as a
-keyword argument (``device="cuda"`` unless the caller asks for the CPU).
+``data_parallel`` is the number of ranks (``torchrun`` processes, one a
+card; 0: as many as were launched), `parallel/mesh.py:setup`. The
+device is not a field: the entry points take it as a keyword argument
+(``device="cuda"`` unless the caller asks for the CPU).
 """
 
 from __future__ import annotations
@@ -115,7 +116,7 @@ class Config:
     use_slurm: bool = False
 
     # --- devices and tracing --------------------------------------------
-    data_parallel: int = 0                 # one card: 0 or 1
+    data_parallel: int = 0                 # ranks; 0 = the world size
     compute_dtype: str = "float32"         # float32 | bfloat16
     profile_dir: Optional[str] = None      # torch.profiler Chrome trace
     profile_steps: int = 5                 # steps traced early in epoch 1

@@ -11,12 +11,14 @@ per frame on the host):
   * the head-relative pose when the root is not estimated     (:153-157)
   * plength tiled limb_dim times                              (:210-214)
 
-The loaders are the port's own copy of the JAX package's (one process;
-`egotap_tpu/data/pipeline.py:117-351`): `BatchLoader` reads `.npy` frames
-in threads, `PackedBatchLoader` gathers batches from a packed split
-(`native/recordio.py`), `PrefetchLoader` keeps a few batches staged in a
-background thread. Eval batches are padded to the batch size with a
-validity mask (``mask``); batches are numpy dicts plus their frame
+The loaders are the port's own copy of the JAX package's
+(`egotap_tpu/data/pipeline.py:117-412`): `BatchLoader` reads `.npy`
+frames in threads, `PackedBatchLoader` gathers batches from a packed
+split (`native/recordio.py`), `PrefetchLoader` keeps a few batches
+staged in a background thread. Over a process group each rank loads its
+own shard (`shard_plan`, JAX's `make_host_sharded_loader`). Eval
+batches are padded to the batch size with a validity mask (``mask``);
+batches are numpy dicts plus their frame
 ``paths``. `make_loader` prefers a packed split: a pack that exists but
 cannot be read raises, and only a missing pack falls back to `.npy`.
 """
@@ -121,10 +123,13 @@ def make_device_preprocess(cfg: Config) -> Callable[[Batch], Batch]:
     return preprocess
 
 
-def _stack_batch(frames, batch_size: int) -> Dict[str, np.ndarray]:
+def _stack_batch(frames, batch_size: int, n_valid: Optional[int] = None
+                 ) -> Dict[str, np.ndarray]:
     """Stack frame dicts; pad to batch_size with the last frame and a
-    validity mask."""
+    validity mask. ``n_valid`` overrides the count of valid rows (0: the
+    all-padding batch of a rank whose shard ran dry)."""
     n = len(frames)
+    n_valid = n if n_valid is None else n_valid
     batch: Dict[str, np.ndarray] = {}
     for k in frames[0]:
         if k == "path":
@@ -134,8 +139,8 @@ def _stack_batch(frames, batch_size: int) -> Dict[str, np.ndarray]:
             pad = np.repeat(arr[-1:], batch_size - n, axis=0)
             arr = np.concatenate([arr, pad], axis=0)
         batch[k] = arr
-    batch["mask"] = (np.arange(batch_size) < n).astype(np.float32)
-    batch["paths"] = [f["path"] for f in frames]  # type: ignore[assignment]
+    batch["mask"] = (np.arange(batch_size) < n_valid).astype(np.float32)
+    batch["paths"] = [f["path"] for f in frames[:n_valid]]  # type: ignore
     return batch
 
 
@@ -143,42 +148,75 @@ def _num_batches(n: int, batch_size: int, drop_last: bool) -> int:
     return n // batch_size if drop_last else -(-n // batch_size)
 
 
-class BatchLoader:
+def _index_batches(indices: np.ndarray, batch_size: int, count: int,
+                   rng: Optional[np.random.Generator]):
+    """(selection, valid rows) of each of ``count`` batches over
+    ``indices``, shuffled with ``rng`` when given. A batch past the end
+    (a rank whose shard ran dry) selects the last index with 0 valid
+    rows."""
+    idx = indices.copy()
+    if rng is not None:
+        rng.shuffle(idx)
+    for i in range(count):
+        sel = idx[i * batch_size:(i + 1) * batch_size]
+        n_valid = len(sel)
+        if n_valid == 0:
+            sel = idx[-1:] if len(idx) else np.zeros(1, np.int64)
+        yield sel, n_valid
+
+
+class _Plan:
+    """What both loaders share: the indices they read, the number of
+    batches (``num_batches`` overrides it: every rank of a process group
+    runs the same count), and the shuffling."""
+
+    def _plan(self, n: int, batch_size: int, shuffle: bool,
+              drop_last: bool, indices, seed: int,
+              num_batches: Optional[int]) -> None:
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.indices = (np.arange(n) if indices is None
+                        else np.asarray(indices, dtype=np.int64))
+        self.rng = np.random.default_rng(seed)
+        self._count = num_batches
+
+    def __len__(self) -> int:
+        if self._count is not None:
+            return self._count
+        return _num_batches(len(self.indices), self.batch_size,
+                            self.drop_last)
+
+    def _index_batches(self):
+        return _index_batches(self.indices, self.batch_size, len(self),
+                              self.rng if self.shuffle else None)
+
+
+class BatchLoader(_Plan):
     """Shuffling / padding batch iterator over `.npy` frames, read in
     threads.
 
     train: shuffled, drop_last (reference dataloader_full,
     dataloader/data_loader.py:41-63); eval: ordered, the final batch
-    padded and masked so that shapes stay fixed."""
+    padded and masked so that shapes stay fixed. ``indices`` and
+    ``num_batches``: a rank's shard (`make_sharded_loader`)."""
 
     def __init__(self, dataset: FrameDataset, batch_size: int,
                  shuffle: bool, drop_last: bool, num_threads: int = 2,
-                 seed: int = 0):
+                 seed: int = 0, indices: Optional[np.ndarray] = None,
+                 num_batches: Optional[int] = None):
         self.ds = dataset
-        self.batch_size = batch_size
-        self.shuffle = shuffle
-        self.drop_last = drop_last
         self.num_threads = max(1, num_threads)
-        self.rng = np.random.default_rng(seed)
-        self.indices = np.arange(len(dataset))
-
-    def __len__(self) -> int:
-        return _num_batches(len(self.indices), self.batch_size,
-                            self.drop_last)
-
-    def _index_batches(self):
-        idx = self.indices.copy()
-        if self.shuffle:
-            self.rng.shuffle(idx)
-        for i in range(len(self)):
-            yield idx[i * self.batch_size:(i + 1) * self.batch_size]
+        self._plan(len(dataset), batch_size, shuffle, drop_last, indices,
+                   seed, num_batches)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         from concurrent.futures import ThreadPoolExecutor
 
-        def load(indices):
+        def load(args):
+            indices, n_valid = args
             return _stack_batch([self.ds[i] for i in indices],
-                                self.batch_size)
+                                self.batch_size, n_valid)
 
         with ThreadPoolExecutor(max_workers=self.num_threads) as pool:
             gen = self._index_batches()
@@ -259,37 +297,24 @@ class PrefetchLoader:
             stop.set()
 
 
-class PackedBatchLoader:
+class PackedBatchLoader(_Plan):
     """Batch iterator over a packed .egr split: one native gather a batch
     (no per-frame Python work). Same interface and semantics as
     `BatchLoader`."""
 
     def __init__(self, reader, batch_size: int, shuffle: bool,
                  drop_last: bool, indices: Optional[np.ndarray] = None,
-                 seed: int = 0):
+                 seed: int = 0, num_batches: Optional[int] = None):
         self.reader = reader
-        self.batch_size = batch_size
-        self.shuffle = shuffle
-        self.drop_last = drop_last
-        self.indices = (np.arange(reader.num_records)
-                        if indices is None else np.asarray(indices))
-        self.rng = np.random.default_rng(seed)
-
-    def __len__(self) -> int:
-        return _num_batches(len(self.indices), self.batch_size,
-                            self.drop_last)
+        self._plan(reader.num_records, batch_size, shuffle, drop_last,
+                   indices, seed, num_batches)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        idx = self.indices.copy()
-        if self.shuffle:
-            self.rng.shuffle(idx)
         paths = self.reader.paths
-        for b in range(len(self)):
-            sel = idx[b * self.batch_size:(b + 1) * self.batch_size]
-            n = len(sel)
-            if n < self.batch_size:  # pad with the last frame + mask
+        for sel, n in self._index_batches():
+            if len(sel) < self.batch_size:  # pad with the last frame + mask
                 sel = np.concatenate(
-                    [sel, np.repeat(sel[-1:], self.batch_size - n)])
+                    [sel, np.repeat(sel[-1:], self.batch_size - len(sel))])
             batch = self.reader.gather(sel)
             batch["mask"] = (np.arange(self.batch_size) < n).astype(np.float32)
             batch["paths"] = ([paths[i] for i in sel[:n]] if paths
@@ -297,17 +322,39 @@ class PackedBatchLoader:
             yield batch
 
 
-def make_loader(cfg: Config, mode: str, category_id: Optional[str] = None):
+def shard_plan(n: int, batch_size: int, train: bool, rank: int,
+               world: int):
+    """Rank ``rank``'s (indices, batch count, local batch) over ``n``
+    records (`egotap_tpu/data/pipeline.py:make_host_sharded_loader`):
+    indices ``rank::world``, a local batch of ``batch_size // world``;
+    training drops the last batch over the smallest shard, evaluation
+    covers the largest (a dry shard's batches are all padding)."""
+    local = batch_size // world
+    indices = np.arange(n)[rank::world]
+    if train:
+        count = (n // world) // local
+    else:
+        largest = -(-n // world)
+        count = -(-largest // local)
+    return indices, count, local
+
+
+def make_loader(cfg: Config, mode: str, category_id: Optional[str] = None,
+                rank: int = 0, world: int = 1):
     """The loader of one split (optionally one motion category): the
     packed split when `native/recordio.py:pack_split` wrote one (a pack
     that cannot be built or opened raises), else the `.npy` frames.
     Training batches are shuffled with ``cfg.seed`` and drop the last
-    partial batch; eval batches keep order and pad it."""
+    partial batch; eval batches keep order and pad it.
+
+    Over ``world`` ranks (`parallel.mesh.rank_world`) rank ``rank``
+    loads its shard (`shard_plan`), shuffled with ``cfg.seed + rank``,
+    and every rank runs the same number of batches."""
     train = mode == "train"
     packed = recordio.packed_path(cfg, mode)
     if os.path.exists(packed):
         reader = recordio.RecordReader(packed, num_threads=cfg.num_threads)
-        indices = None
+        indices = np.arange(reader.num_records)
         if category_id is not None:
             if reader.paths is None:
                 raise ValueError(f"{packed} has no .paths sidecar; cannot "
@@ -315,12 +362,18 @@ def make_loader(cfg: Config, mode: str, category_id: Optional[str] = None):
             indices = np.asarray(
                 [i for i, p in enumerate(reader.paths)
                  if p.split("/")[-4] == category_id], dtype=np.int64)
-        loader = PackedBatchLoader(reader, cfg.batch_size, shuffle=train,
-                                   drop_last=train, indices=indices,
-                                   seed=cfg.seed)
+        sel, count, local = shard_plan(len(indices), cfg.batch_size, train,
+                                       rank, world)
+        loader = PackedBatchLoader(
+            reader, local, shuffle=train, drop_last=train,
+            indices=indices[sel], seed=cfg.seed + rank,
+            num_batches=count if world > 1 else None)
         if cfg.prefetch_batches > 0:
             return PrefetchLoader(loader, depth=cfg.prefetch_batches)
         return loader
     ds = FrameDataset(cfg, mode, category_id)
-    return BatchLoader(ds, cfg.batch_size, shuffle=train, drop_last=train,
-                       num_threads=cfg.num_threads, seed=cfg.seed)
+    sel, count, local = shard_plan(len(ds), cfg.batch_size, train, rank,
+                                   world)
+    return BatchLoader(ds, local, shuffle=train, drop_last=train,
+                       num_threads=cfg.num_threads, seed=cfg.seed + rank,
+                       indices=sel, num_batches=count if world > 1 else None)

@@ -1,6 +1,6 @@
 """Evaluation loop and result files.
 
-Counterpart of `egotap_tpu/eval/evaluate.py` for one process (reference
+Counterpart of `egotap_tpu/eval/evaluate.py` (reference
 utils/evaluate.py:75-170 and test.py):
   * `evaluate`: a timed no-grad loop over a split; per-sample metrics
     with the padding masks; optionally the pred/gt pose dumps and the
@@ -13,6 +13,14 @@ Timing: batches are queued without a per-batch synchronize; the first
 batch (warm-up) is excluded when more than one runs, and the clock stops
 at a device synchronize after the last. The metrics are read back after
 the loop.
+
+Over the task's process group (``task.dp``, `parallel/mesh.py`) each
+rank evaluates its shard of the split (`data.pipeline.make_loader`);
+the calibrated int8 scales are the elementwise max over the ranks (as
+if calibrated on the union of their batches); the means are weighted by
+each rank's count; the per-sample stats and the pose dumps are gathered
+in rank order, and only rank 0 writes files; pairs/s is every rank's
+timed pairs over the slowest rank's wall time.
 """
 
 from __future__ import annotations
@@ -29,6 +37,8 @@ from egotap_tpu_torch.core.config import Config
 from egotap_tpu_torch.core.device import resolve_device
 from egotap_tpu_torch.data.pipeline import make_device_preprocess, make_loader
 from egotap_tpu_torch.eval.metrics import MetricAccumulator
+from egotap_tpu_torch.ops.quant import Calibrated
+from egotap_tpu_torch.parallel import mesh
 
 
 def to_device(batch: Dict[str, np.ndarray], device: torch.device
@@ -61,7 +71,8 @@ def evaluate(cfg: Config, task, state, mode: str = "test",
     if dev != task.device:
         raise ValueError(f"evaluate on {dev}, but the task runs on "
                          f"{task.device}")
-    loader = make_loader(cfg, mode, category_id)
+    dp = task.dp
+    loader = make_loader(cfg, mode, category_id, *mesh.rank_world(dp))
     if len(loader) == 0:
         suffix = f" (category {category_id})" if category_id else ""
         print(f"Evaluation dataset is empty!{suffix}")
@@ -80,6 +91,8 @@ def evaluate(cfg: Config, task, state, mode: str = "test",
                 calib.append({"input_rgb":
                               pre(to_device(batch, dev))["input_rgb"]})
         state = task.prepare_inference(state, calib_batches=calib)
+        if calib and dp is not None:
+            sync_calibrated_scales(state.inference.nets, dp)
         if int8_on:
             print("int8 inference: " + (
                 f"calibrated static ({len(calib)} batches)" if calib
@@ -121,9 +134,23 @@ def evaluate(cfg: Config, task, state, mode: str = "test",
             pred_poses.append(poses[0].cpu().numpy()[keep])
             gt_poses.append(poses[1].cpu().numpy()[keep])
 
+    means, per_sample = acc.means(), acc.per_sample
+    pairs_per_sec = n_timed / elapsed if elapsed > 0 else 0.0
+    if dp is not None:
+        ranks = dp.gather_objects(
+            ({k: (v, acc.count) for k, v in means.items()}, per_sample,
+             (n_timed, elapsed), (pred_poses, gt_poses, input_paths)))
+        means = _weighted_means([r[0] for r in ranks])
+        per_sample = {k: [x for r in ranks for x in r[1].get(k, [])]
+                      for k in means}
+        pairs_per_sec = (sum(r[2][0] for r in ranks)
+                         / max(max(r[2][1] for r in ranks), 1e-9))
+        pred_poses, gt_poses, input_paths = (
+            [x for r in ranks for x in r[3][i]] for i in range(3))
+
     # nothing is written for a task without poses (HeatmapTask), as the
     # reference writes nothing then
-    if save_result and pred_poses:
+    if save_result and pred_poses and (dp is None or dp.main):
         save_path = cfg.results_dir
         os.makedirs(save_path, exist_ok=True)
         np.save(os.path.join(save_path, "pred_pose.npy"),
@@ -135,9 +162,31 @@ def evaluate(cfg: Config, task, state, mode: str = "test",
         with open(os.path.join(save_path, "input_paths.pkl"), "wb") as f:
             pickle.dump(np.asarray(input_paths, dtype=object).reshape(-1, 1),
                         f)
+    return means, per_sample, pairs_per_sec
 
-    pairs_per_sec = n_timed / elapsed if elapsed > 0 else 0.0
-    return acc.means(), acc.per_sample, pairs_per_sec
+
+def _weighted_means(ranks) -> Dict[str, float]:
+    """The global mean of each metric from every rank's {key: (mean,
+    count)}; a key missing on a rank counts 0 rows there."""
+    keys = list(dict.fromkeys(k for r in ranks for k in r))
+    out = {}
+    for k in keys:
+        total = sum(r[k][0] * r[k][1] for r in ranks if k in r)
+        count = sum(r[k][1] for r in ranks if k in r)
+        out[k] = total / max(count, 1)
+    return out
+
+
+def sync_calibrated_scales(nets, dp) -> None:
+    """Every static activation scale of ``nets`` becomes its max over the
+    ranks (`egotap_tpu/eval/evaluate.py:_sync_calibrated_scales`): each
+    rank calibrated on its own shard, and a_scale = amax / 127 is
+    monotone in amax, so the max is the scale of the union of the
+    ranks' batches."""
+    scales = [m.a_scale for net in nets for m in net.modules()
+              if isinstance(m, Calibrated) and m.a_scale is not None]
+    if scales:
+        dp.max_(scales)
 
 
 def write_detail_result(path: str, stats: Dict[str, list]) -> None:

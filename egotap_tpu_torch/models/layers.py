@@ -18,13 +18,17 @@ f32 and cast back. With ``quant`` the conv is a `QConv` and the Linear a
 BatchNorm follows the module's ``training`` flag, as torch's does:
 `batch_norm_eval` normalises with the running statistics,
 `batch_norm_train` with the batch's and updates the running ones
-(`egotap_tpu/models/layers.py:TorchBatchNorm`). int8 modules are
-inference-only and ignore the flag, as the JAX package's int8 twins
-run only with ``train=False``.
+(`egotap_tpu/models/layers.py:TorchBatchNorm`). Inside
+`global_batch_statistics(dp)` the batch statistics of a train-mode
+BatchNorm are those of the global batch over a data-parallel process
+group, as under JAX's mesh, where the batch is one array sharded over
+'data'. int8 modules are inference-only and ignore the flag, as the JAX
+package's int8 twins run only with ``train=False``.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
@@ -36,6 +40,21 @@ from egotap_tpu_torch.ops.quant import QConv, QDense
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1          # torch momentum (flax decay 0.9)
 LEAKY_SLOPE = 0.2
+_RANKS = None              # the `global_batch_statistics` process group
+
+
+@contextlib.contextmanager
+def global_batch_statistics(dp):
+    """Train-mode BatchNorm inside takes its statistics over the ranks of
+    ``dp`` (a `parallel.mesh.DataParallel`; None or one rank: this
+    process's batch, the computation unchanged)."""
+    global _RANKS
+    previous = _RANKS
+    _RANKS = dp if dp is not None and dp.world > 1 else None
+    try:
+        yield
+    finally:
+        _RANKS = previous
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
@@ -82,16 +101,28 @@ def batch_norm_train(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm,
     normalised by its own statistics and the running statistics take G
     sequential updates in group order, as the reference's one encoder
     call per stereo view does. Differentiable through the batch
-    statistics; the running statistics are updated in place."""
+    statistics; the running statistics are updated in place.
+
+    Inside `global_batch_statistics` the per-group sum and the centred
+    sum of squares of each rank's rows (grouped as above within them)
+    are summed over the ranks, differentiably, and n counts the global
+    batch: every rank equal-sized, so every rank holds the same
+    statistics and running statistics."""
     feat = x.shape[-1]
     xg = x.float().reshape((-1, groups) + tuple(x.shape[1:]))
     axes = (0,) + tuple(range(2, xg.dim() - 1))
     shape = (1, groups) + (1,) * (xg.dim() - 3) + (feat,)
-    mean = xg.mean(dim=axes)                                   # (G, C)
-    centred = xg - mean.reshape(shape)
-    var = centred.square().mean(dim=axes)
+    n = x.numel() // (feat * groups)
+    if _RANKS is None:
+        mean = xg.mean(dim=axes)                               # (G, C)
+        centred = xg - mean.reshape(shape)
+        var = centred.square().mean(dim=axes)
+    else:
+        n *= _RANKS.world
+        mean = _RANKS.sum_over_ranks(xg.sum(dim=axes)) / n
+        centred = xg - mean.reshape(shape)
+        var = _RANKS.sum_over_ranks(centred.square().sum(dim=axes)) / n
     with torch.no_grad():
-        n = x.numel() // (feat * groups)
         unbiased = var * (n / max(n - 1, 1))
         rm, rv = bn.running_mean, bn.running_var
         for g in range(groups):                  # sequential, view order

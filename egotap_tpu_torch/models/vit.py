@@ -95,8 +95,12 @@ class ViTBlock(nn.Module):
         self.qkv_in = QuantStub() if quant else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attend(layer_norm(x, self.layernorm_before))
+        return x + self.mlp(layer_norm(x, self.layernorm_after))
+
+    def attend(self, y: torch.Tensor) -> torch.Tensor:
+        """The attention half on the normalised input ``y``."""
         sa = self.attention.attention
-        y = layer_norm(x, self.layernorm_before)
         if self.qkv_in is not None:     # y quantized once for q, k and v
             pre_q = self.qkv_in(y)
             q, k, v = (lin(y, pre_q=pre_q)
@@ -106,12 +110,17 @@ class ViTBlock(nn.Module):
         # q/k/v stay in projection layout (B, S, H*Dh): the kernel slices
         # heads itself, so no (B, H, S, Dh) transposes on either side
         ctx = multihead_attention_packed(q, k, v, self.num_heads)
-        x = x + self.attention.output.dense(ctx)
-        y = layer_norm(x, self.layernorm_after)
-        y = self.intermediate.dense(y)
-        y = F.gelu(y, approximate="none" if x.dtype == torch.float32
-                   else "tanh")
-        return x + self.output.dense(y)
+        return self.attention.output.dense(ctx)
+
+    def mlp(self, y: torch.Tensor) -> torch.Tensor:
+        """The MLP half on the normalised input ``y``."""
+        return self.output.dense(gelu(self.intermediate.dense(y)))
+
+
+def gelu(y: torch.Tensor) -> torch.Tensor:
+    """The exact erf GELU at f32, the tanh form under bf16."""
+    return F.gelu(y, approximate="none" if y.dtype == torch.float32
+                  else "tanh")
 
 
 class _PatchEmbeddings(nn.Module):

@@ -58,3 +58,19 @@ def kernel_errors(got: torch.Tensor, ref: torch.Tensor):
     rms_rel = (diff.square().mean().sqrt()
                / ref.square().mean().sqrt().clamp_min(1e-30)).item()
     return max_abs, max_rel, rms_rel
+
+
+def launch_counts(reset: bool = False) -> dict:
+    """Each kernel wrapper's count of its launches, by kernel (zeroed
+    first with ``reset``)."""
+    from egotap_tpu_torch.ops import (attention, fused_layer1, pu_kernel,
+                                      upsample)
+    wrappers = {"upsample": upsample.upsample2x_align_corners,
+                "attention": attention.multihead_attention_packed,
+                "pu_chain": pu_kernel.pu_chain_fused,
+                "attention_unpacked": attention.multihead_attention,
+                "fused_layer1": fused_layer1.fused_layer1_int8}
+    if reset:
+        for w in wrappers.values():
+            w.launches = 0
+    return {n: w.launches for n, w in wrappers.items()}

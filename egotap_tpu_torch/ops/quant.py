@@ -122,7 +122,7 @@ def conv_weight_rows(wq: torch.Tensor) -> torch.Tensor:
     return wq.permute(0, 2, 3, 1).reshape(wq.shape[0], -1)
 
 
-def _dequantize(acc: torch.Tensor, a_scale: torch.Tensor,
+def dequantize(acc: torch.Tensor, a_scale: torch.Tensor,
                 w_scale: torch.Tensor, bias: Optional[torch.Tensor],
                 dtype: torch.dtype) -> torch.Tensor:
     out = acc.float() * (a_scale * w_scale)
@@ -141,7 +141,7 @@ def quantized_conv(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
     xq, a_scale = quantize_activation(x, a_scale)
     cols, (ho, wo) = im2col(xq, wq.shape[-1], stride, padding)
     acc = int8_matmul(cols, conv_weight_rows(wq))
-    out = _dequantize(acc, a_scale, w_scale, bias, x.dtype)
+    out = dequantize(acc, a_scale, w_scale, bias, x.dtype)
     return out.reshape(x.shape[0], ho, wo, -1)
 
 
@@ -155,7 +155,7 @@ def quantized_dense(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
     xq, a_scale = pre_q if pre_q is not None \
         else quantize_activation(x, a_scale)
     acc = int8_matmul(xq.reshape(-1, xq.shape[-1]), wq)
-    out = _dequantize(acc, a_scale, w_scale, bias, x.dtype)
+    out = dequantize(acc, a_scale, w_scale, bias, x.dtype)
     return out.reshape(*x.shape[:-1], -1)
 
 

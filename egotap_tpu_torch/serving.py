@@ -1,14 +1,22 @@
-"""Inference/serving API: stereo RGB -> 3D pose on one card.
+"""Inference/serving API: stereo RGB -> 3D pose on one card or several.
 
 Counterpart of `egotap_tpu/serving.py:Predictor` (bf16, f32 and int8
-paths; ``shard()`` and ``from_orbax()`` are not ported yet). The forward
-is the JAX `_forward`: two `HeatmapUNet`s (pos, rot) on the same stereo
+paths, `shard`, and `from_checkpoint` for `from_orbax`). The forward is
+the JAX `_forward`: two `HeatmapUNet`s (pos, rot) on the same stereo
 input, their outputs concatenated into the heatmap stack, then
 `EgoTAPLifter`.
 
     pred = Predictor.from_reference_checkpoints(
         heatmap_pth, rot_heatmap_pth, lifter_pth, preset="UnrealEgo")
+    pred = Predictor.from_checkpoint(cfg, experiment_dir)   # ckpt_best
     poses = pred(rgb)          # (B, 2, 256, 256, 3) -> (B, J, 3)
+
+Several cards in one process (`shard`): the batch splits over
+``num_devices`` data shards, each a replica of the nets, and with
+``num_model > 1`` each replica's Grid-ViT is tensor-parallel over
+``num_model`` devices (`parallel/tp.py`):
+
+    pred = Predictor(cfg).shard(num_devices=2, num_model=2)   # 4 cards
 
 int8 serving (the deployment configuration of `bench.py`): int8 weights
 are quantized at construction, then `calibrate` installs static
@@ -22,7 +30,10 @@ Runs on the card unless ``device="cpu"`` is passed; with no card and no
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import copy
+import os
+import warnings
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -37,6 +48,8 @@ from egotap_tpu_torch.models.lifter import EgoTAPLifter
 from egotap_tpu_torch.models.skel_variants import LSTMTreeWalk
 from egotap_tpu_torch.ops.quant import (Calibrated, install_scales,
                                         prequantize, set_calibrating)
+from egotap_tpu_torch.parallel.tp import shard_lifter
+from egotap_tpu_torch.train.state import read_checkpoint
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -172,6 +185,9 @@ class Predictor:
         self.nets = (self.pos_net, self.rot_net, self.lifter)
         # pre-quantized int8 weights, off the hot path
         prequantize(self.nets)
+        self._layout = None         # `shard`'s (num_model, devices)
+        self._replicas = None       # (device, nets) of each data shard
+        self._warned_dynamic_pad = False
 
     @torch.no_grad()
     def calibrate(self, rgb_batches) -> "Predictor":
@@ -195,6 +211,8 @@ class Predictor:
         finally:
             set_calibrating(self.nets, False)
         install_scales(self.nets)
+        if self._layout is not None:      # re-place the new scales
+            self._place(*self._layout)
         return self
 
     def _has_static_scales(self) -> bool:
@@ -210,11 +228,77 @@ class Predictor:
     def _forward(self, rgb: torch.Tensor) -> torch.Tensor:
         return pose_forward(self.nets, rgb, self.dtype)
 
-    def __call__(self, rgb) -> np.ndarray:
+    def __call__(self, rgb, pad_ragged: bool = True) -> np.ndarray:
         """rgb: (B, views, H, W, 3) ImageNet-normalized float32 (numpy or
-        tensor) -> (B, num_joints, 3) float32 numpy."""
-        x = torch.as_tensor(rgb).to(self.device)
-        return self._forward(x).cpu().numpy()
+        tensor) -> (B, num_joints, 3) float32 numpy.
+
+        A sharded predictor splits the batch over its data shards; a
+        batch they do not divide is zero-padded to the next multiple and
+        the pad rows are dropped (``pad_ragged=False`` raises instead).
+        Pad rows cannot reach real rows (eval-mode BatchNorm, static
+        int8 scales after `calibrate`); under dynamic int8 scales they
+        shift the per-call scales, and a warning says so once."""
+        x = torch.as_tensor(rgb)
+        if self._replicas is None:
+            return self._forward(x.to(self.device)).cpu().numpy()
+        n_valid, n = x.shape[0], len(self._replicas)
+        rem = n_valid % n
+        if rem and not pad_ragged:
+            raise ValueError(f"batch size {n_valid} not divisible by the "
+                             f"{n}-way data split; pad the batch or "
+                             "re-shard")
+        if rem:
+            if any(self.int8) and not self._has_static_scales() \
+                    and not self._warned_dynamic_pad:
+                warnings.warn(
+                    "padding a ragged batch with dynamic int8 activation "
+                    "scales perturbs real-row outputs; call calibrate() "
+                    "for padding-invariant numerics or pass "
+                    "pad_ragged=False", stacklevel=2)
+                self._warned_dynamic_pad = True
+            x = torch.cat([x, x.new_zeros((n - rem,) + x.shape[1:])])
+        with torch.no_grad():
+            outs = [pose_forward(nets, chunk.to(dev), self.dtype)
+                    for (dev, nets), chunk in zip(self._replicas,
+                                                  x.chunk(n))]
+        return torch.cat([o.cpu() for o in outs])[:n_valid].numpy()
+
+    def shard(self, num_devices: int = 0, num_model: int = 1,
+              devices: Optional[Sequence] = None) -> "Predictor":
+        """Serve over ``num_devices`` x ``num_model`` devices
+        (`egotap_tpu/serving.py:Predictor.shard`): data shard d holds a
+        replica of the nets on ``devices[d * num_model]``, its Grid-ViT
+        tensor-parallel over ``devices[d * num_model:(d + 1) *
+        num_model]`` (`parallel/tp.py`). ``devices`` defaults to every
+        visible card; ``num_devices`` 0 takes as many shards as they
+        hold. Fewer devices than asked for raise; a list with repeats is
+        the one way to put shards on the same card. Per-sample outputs
+        are the unsharded predictor's up to summation order. Returns
+        self."""
+        if devices is None:
+            devices = [torch.device("cuda", i)
+                       for i in range(torch.cuda.device_count())]
+        devices = [resolve_device(d) for d in devices]
+        if num_devices == 0:
+            num_devices = len(devices) // num_model
+        need = num_devices * num_model
+        if num_devices < 1 or len(devices) < need:
+            raise RuntimeError(f"{num_devices} data x {num_model} model "
+                               f"shards need {need} devices, "
+                               f"{len(devices)} given")
+        self._place(num_model, devices[:need])
+        return self
+
+    def _place(self, num_model: int, devices) -> None:
+        """Build the replicas of `shard` from the predictor's nets."""
+        self._layout = (num_model, devices)
+        self._replicas = []
+        for d in range(len(devices) // num_model):
+            group = devices[d * num_model:(d + 1) * num_model]
+            pos, rot = (copy.deepcopy(net).to(group[0])
+                        for net in (self.pos_net, self.rot_net))
+            self._replicas.append(
+                (group[0], (pos, rot, shard_lifter(self.lifter, group))))
 
     @torch.no_grad()
     def heatmaps(self, rgb) -> np.ndarray:
@@ -248,3 +332,20 @@ class Predictor:
 
         return cls(cfg, load(heatmap_pth), load(rot_heatmap_pth),
                    load(lifter_pth), bf16=bf16, int8=int8, device=device)
+
+    @classmethod
+    def from_checkpoint(cls, cfg: Config, experiment_dir: str,
+                        tag: str = "best", bf16: bool = True,
+                        int8: Optional[bool] = None,
+                        device="cuda") -> "Predictor":
+        """Build from a port stage-2 checkpoint ``{experiment_dir}/
+        ckpt_{tag}`` (`train/state.py`; the counterpart of
+        `egotap_tpu/serving.py:Predictor.from_orbax`): the lifter from its
+        ``net``, the pos and rot nets from ``frozen["heatmap"]`` /
+        ``frozen["rot_heatmap"]`` with the running statistics stage-2
+        training evolved."""
+        resolve_device(device)
+        saved = read_checkpoint(os.path.join(experiment_dir, f"ckpt_{tag}"))
+        frozen = saved["frozen"]
+        return cls(cfg, frozen["heatmap"], frozen["rot_heatmap"],
+                   saved["net"], bf16=bf16, int8=int8, device=device)

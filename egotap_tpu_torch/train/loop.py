@@ -1,7 +1,6 @@
 """The training loop: epochs, watchdogs, restarts and artifacts.
 
-Counterpart of `egotap_tpu/train/loop.py` for one card (reference
-train.py:63-287):
+Counterpart of `egotap_tpu/train/loop.py` (reference train.py:63-287):
   * a NaN/Inf loss saves a tagged checkpoint, reloads the previous epoch
     and restarts it (at epoch 1: abort, or terminate with
     ``auto_terminate``; train.py:137-164);
@@ -22,6 +21,15 @@ wall time with validation and every checkpoint write (``epoch_s``), the
 step loop (``loop_s``) and its time waiting on the loader
 (``loader_wait_s``), the validation pass (``val_s``), and the checkpoint
 writes, ``best`` and the epoch's own (``ckpt_s``).
+
+Data parallelism: launched by ``torchrun`` (one process a card; or
+inside a process group already joined, `parallel.mesh.init`), every rank
+starts from rank 0's state, loads its shard of each split and takes the
+same steps (`parallel/mesh.py`, the task's ``dp``); losses are averaged
+over the ranks before they are read, so every rank takes the same
+NaN/Inf and watchdog decisions. Only rank 0 writes the option file, the
+summary, the checkpoints, the provenance copy and ``test_result.txt``;
+the others wait for each checkpoint write.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from egotap_tpu_torch.core.device import resolve_device
 from egotap_tpu_torch.data.pipeline import make_device_preprocess, make_loader
 from egotap_tpu_torch.eval.categories import MOTION_CATEGORIES
 from egotap_tpu_torch.eval.evaluate import evaluate, to_device
+from egotap_tpu_torch.parallel import mesh
 from egotap_tpu_torch.train import state as state_lib
 from egotap_tpu_torch.train.tasks import create_task, load_heatmap_state
 from egotap_tpu_torch.utils.logging import MetricWriter
@@ -105,41 +114,48 @@ def train_main(cfg: Config, epoch_callback=None, device="cuda") -> bool:
     train_losses, val_metrics, bad_loss, checkpoint_path, state}
     (``state``: the live `TrainState`); a truthy return stops cleanly,
     and training goes on to the final best-model test."""
-    dev = resolve_device(device)
-    if cfg.data_parallel > 1:
-        raise NotImplementedError(
-            f"data_parallel={cfg.data_parallel}: the port trains on one "
-            "card (multi-process data parallelism is the item "
-            "\"Parallelism\" of ROADMAP.md section 1)")
+    dp = mesh.setup(cfg, device)
+    dev = resolve_device(dp.device if dp is not None else device)
+    main = dp is None or dp.main
     os.makedirs(cfg.experiment_dir, exist_ok=True)
-    cfg.save(os.path.join(cfg.experiment_dir, "train_opt.txt"))
+    if main:
+        cfg.save(os.path.join(cfg.experiment_dir, "train_opt.txt"))
 
     print("preparing dataset ...")
-    train_loader = make_loader(cfg, "train")
+    train_loader = make_loader(cfg, "train", None, *mesh.rank_world(dp))
     iters_per_epoch = len(train_loader)
     if iters_per_epoch == 0:
         raise RuntimeError("empty training split")
     pre = make_device_preprocess(cfg)
 
     task = create_task(cfg, dev)
+    task.dp = dp
     state = _init_task_state(cfg, task, iters_per_epoch)
     if cfg.epoch_count > 1:
         state = state_lib.load_checkpoint(cfg.experiment_dir,
                                           cfg.epoch_count - 1, state)
+    if dp is not None:
+        dp.broadcast_modules([state.net, *state.frozen.values()])
+        print(f"data-parallel training over {dp.world} ranks "
+              f"({dp.backend})")
 
     writer = MetricWriter(os.path.join(cfg.experiment_dir, "summary"),
-                          clear=(cfg.epoch_count == 1))
+                          clear=(cfg.epoch_count == 1)) if main \
+        else _NullWriter()
 
     def save_ckpt(tag):
         nonlocal ckpt_s
         t = time.perf_counter()
-        state_lib.save_checkpoint(cfg.experiment_dir, tag, state)
+        if main:
+            state_lib.save_checkpoint(cfg.experiment_dir, tag, state)
+        if dp is not None:
+            dp.barrier()           # the others may read it next
         ckpt_s += time.perf_counter() - t
 
     # dataset provenance copy (reference record_dataset_information,
     # train.py:36-47)
     prov = os.path.join(cfg.data_dir, "modify_dataset_log.txt")
-    if os.path.exists(prov):
+    if main and os.path.exists(prov):
         ds_dir = os.path.join(cfg.experiment_dir, "dataset")
         os.makedirs(ds_dir, exist_ok=True)
         shutil.copy(prov, os.path.join(ds_dir, "modify_dataset_log.txt"))
@@ -290,22 +306,34 @@ def train_main(cfg: Config, epoch_callback=None, device="cuda") -> bool:
         state = state_lib.load_checkpoint(cfg.experiment_dir, "best", state)
     metrics_test = test_model(cfg, task, state, dev)
 
-    with open(os.path.join(cfg.experiment_dir, "test_result.txt"), "w") as f:
-        for k, v in metrics_test.items():
-            f.write(f"{k}: {v:.4e}")
-        f.write("\n")
-        for key, name in MOTION_CATEGORIES.items():
-            cat_metrics, _, _ = evaluate(cfg, task, state, mode="test",
-                                         category_id=key, device=dev)
-            if not cat_metrics:
-                continue
-            f.write(f"category: {key}_{name}\n")
-            for k, v in cat_metrics.items():
-                f.write(f"{k}: {v}\n")
+    lines = ["".join(f"{k}: {v:.4e}" for k, v in metrics_test.items())]
+    for key, name in MOTION_CATEGORIES.items():
+        cat_metrics, _, _ = evaluate(cfg, task, state, mode="test",
+                                     category_id=key, device=dev)
+        if cat_metrics:
+            lines.append(f"category: {key}_{name}")
+            lines += [f"{k}: {v}" for k, v in cat_metrics.items()]
+    if main:
+        with open(os.path.join(cfg.experiment_dir, "test_result.txt"),
+                  "w") as f:
+            f.write("\n".join(lines) + "\n")
 
     writer.close()
     print("-----------------All Process Finished-----------------")
     return True
+
+
+class _NullWriter:
+    """The summary writer of a rank that writes no files."""
+
+    def scalar(self, *_):
+        pass
+
+    def scalars(self, *_):
+        pass
+
+    def close(self):
+        pass
 
 
 def run_training(cfg: Config, epoch_callback=None, device="cuda") -> None:

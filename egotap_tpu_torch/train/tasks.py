@@ -41,6 +41,7 @@ from egotap_tpu_torch.eval.metrics import pose_metrics
 from egotap_tpu_torch.models.heatmap_net import HeatmapUNet
 from egotap_tpu_torch.models.initializers import (apply_reference_init,
                                                   load_imagenet_backbone)
+from egotap_tpu_torch.models.layers import global_batch_statistics
 from egotap_tpu_torch.serving import (Predictor, build_nets, init_weights,
                                       pose_forward)
 from egotap_tpu_torch.train import losses as L
@@ -82,25 +83,46 @@ def net_gradients(net: nn.Module,
 
 class _Task:
     """What the two tasks share: the device, the compute dtype, the batch
-    moved to the device, and the optimizer step."""
+    moved to the device, and the optimizer step. ``dp``: the
+    data-parallel process group (`parallel.mesh.DataParallel`) the step
+    runs over, or None for one process."""
 
-    def __init__(self, cfg: Config, device="cuda"):
+    def __init__(self, cfg: Config, device="cuda", dp=None):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             set_f32_numerics()
         self.cfg = cfg
         self.dtype = compute_dtype(cfg)
+        self.dp = dp
 
     def _batch(self, batch) -> Batch:
         return {k: torch.as_tensor(v).to(self.device)
                 for k, v in batch.items()}
 
+    def step_gradients(self, state: TrainState, batch
+                       ) -> Tuple[Dict[str, torch.Tensor], Grads]:
+        """The losses and gradients `train_step` applies: the task's
+        `gradients`, over a process group with BatchNorm statistics of
+        the global batch, then averaged over the ranks."""
+        with global_batch_statistics(self.dp):
+            loss_d, grads = self.gradients(state, batch)
+        if self.dp is not None:
+            grads = self.dp.average_gradients(grads)
+            loss_d = self.dp.average(loss_d)
+        return loss_d, grads
+
     def train_step(self, state: TrainState, batch
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One optimizer step of the trained net on ``batch`` (see the
         task's `gradients`); updates ``state`` in place and returns it
-        with the losses."""
-        loss_d, grads = self.gradients(state, batch)
+        with the losses.
+
+        Over a process group (``dp``) ``batch`` holds this rank's rows:
+        train-mode BatchNorm takes its statistics over the global batch,
+        and the gradients and losses are averaged over the ranks before
+        the optimizer, so that the step is the single-process step at
+        the global batch and every rank holds the same losses."""
+        loss_d, grads = self.step_gradients(state, batch)
         state.opt.step(dict(state.net.named_parameters()), grads)
         state.step += 1
         return state, loss_d
@@ -130,8 +152,8 @@ class HeatmapTask(_Task):
     name = "Heatmap Shared model"    # the training loop's watchdog reads it
     eval_key = "mse_heatmap"         # the metric that picks `best`
 
-    def __init__(self, cfg: Config, device="cuda"):
-        super().__init__(cfg, device)
+    def __init__(self, cfg: Config, device="cuda", dp=None):
+        super().__init__(cfg, device, dp)
         self.nh, self.nr, self.ld = (cfg.num_heatmap, cfg.num_rot_heatmap,
                                      cfg.limb_dim)
         self.views = cfg.views
@@ -235,8 +257,8 @@ class LifterTask(_Task):
     name = "EgoTAP AutoEncoder model"
     eval_key = "mpjpe"
 
-    def __init__(self, cfg: Config, device="cuda"):
-        super().__init__(cfg, device)
+    def __init__(self, cfg: Config, device="cuda", dp=None):
+        super().__init__(cfg, device, dp)
         self.sk = get_skeleton(cfg.joint_preset)
 
     def init_state(self, seed: int, iters_per_epoch: int,
@@ -348,10 +370,10 @@ class LifterTask(_Task):
         return dataclasses.replace(state, inference=pred)
 
 
-def create_task(cfg: Config, device="cuda"):
+def create_task(cfg: Config, device="cuda", dp=None):
     """Model factory (reference model/models.py:2-18)."""
     if cfg.model == "heatmap_shared":
-        return HeatmapTask(cfg, device)
+        return HeatmapTask(cfg, device, dp)
     if cfg.model == "egotap_autoencoder":
-        return LifterTask(cfg, device)
+        return LifterTask(cfg, device, dp)
     raise ValueError(f"Model [{cfg.model}] not recognized.")

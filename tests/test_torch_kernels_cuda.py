@@ -494,3 +494,52 @@ def test_fused_layer1_rounds_ties_as_plain(gen):
     x[:, 0, 0, 0] = m
     _close(_fused(x, packed), fl.fused_layer1_plain(x, *packed),
            fl.TOL[torch.float32])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_tensor_parallel_shard(gen, dtype):
+    """Kernel B at a tensor-parallel shard's shape: the Grid-ViT's heads
+    split over 2 model shards, (16, 576, 512) with 4 heads
+    (`parallel/tp.py`)."""
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(16, 576, 4 * 128, generator=gen,
+                           device="cuda").to(dt) for _ in range(3))
+    before = att.multihead_attention_packed.launches
+    got = att.multihead_attention_packed(q, k, v, 4)
+    assert att.multihead_attention_packed.launches == before + 1
+    _close(got, att.attention_packed_plain(q, k, v, 4), att.TOL[dt])
+
+
+def test_one_nccl_rank_step_equals_one_process(gen, tmp_path):
+    """A stage-2 training step through a process group of one NCCL rank
+    (`parallel/mesh.py`: gradients averaged by an all-reduce, losses too)
+    equals the single-process step bit for bit, at a small size."""
+    from egotap_tpu_torch.core.config import Config
+    from egotap_tpu_torch.parallel import mesh
+    from egotap_tpu_torch.train.tasks import LifterTask
+    cfg = Config(model="egotap_autoencoder", num_heatmap=15,
+                 num_rot_heatmap=15, heatmap_type="sin", ae_hidden_size=8,
+                 load_size_heatmap=(16, 16), batch_size=2).derive()
+    batch = {"input_rgb": torch.randn(2, 2, 64, 64, 3, generator=gen,
+                                      device="cuda"),
+             "gt_local_pose": torch.randn(2, 16, 3, generator=gen,
+                                          device="cuda")}
+    store = torch.distributed.FileStore(str(tmp_path / "store"), 1)
+    dp = mesh.init("cuda:0", rank=0, world_size=1, store=store,
+                   backend="nccl")
+    try:
+        out = []
+        for ranks in (None, dp):
+            task = LifterTask(cfg, device="cuda", dp=ranks)
+            state = task.init_state(seed=0, iters_per_epoch=1)
+            state, losses = task.train_step(state, batch)
+            out.append((losses, state.net.state_dict(),
+                        state.frozen["heatmap"].state_dict()))
+    finally:
+        mesh.shutdown()
+    (l1, n1, f1), (l2, n2, f2) = out
+    assert {k: float(v) for k, v in l1.items()} == \
+        {k: float(v) for k, v in l2.items()}
+    for a, b in ((n1, n2), (f1, f2)):
+        for k in a:
+            assert torch.equal(a[k], b[k]), k

@@ -5,9 +5,10 @@ package's tests/test_train_loop.py and tests/test_watchdogs.py: the
 artifacts and the removal of the previous epoch's checkpoint, the
 `epoch_callback` early stop, the NaN abort and ``auto_terminate``, the
 watchdog at lr 0; and beyond them the restart of an epoch after a NaN,
-the resume from ``epoch_count``, ``data_parallel > 1`` refused, the
-profiler trace, the summary rotation, and the two-stage CLI flow (joint,
-limb, lifter warm-started from both ``ckpt_best``, then `cli.test`)."""
+the resume from ``epoch_count``, ``data_parallel > 1`` refused in one
+process, the profiler trace, the summary rotation, and the two-stage CLI
+flow (joint, limb, lifter warm-started from both ``ckpt_best``, then
+`cli.test`)."""
 
 import json
 import os
@@ -216,8 +217,10 @@ def test_resume_from_epoch_count(root, tmp_path):
 
 
 def test_data_parallel_is_refused(root, tmp_path):
+    """data_parallel > 1 in one process (not launched by torchrun) is
+    refused."""
     cfg = _cfg(root, tmp_path, data_parallel=2)
-    with pytest.raises(NotImplementedError, match="one card"):
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node=2"):
         loop.train_main(cfg, device="cpu")
 
 
