@@ -162,9 +162,11 @@ Exits non-zero, printing no result, when there is no card. Phases:
    backward recompute time a launch of A (stage 1), B and C, the
    launches of A, B and C in each CLI run of phase 8, each bf16
    kernel's launches per LSTM training step and in the LSTM CLI runs of
-   phase 9, and each kernel's launches in the one-NCCL-rank training
-   step and in the sharded forward of phase 10, with a row for B at 4
-   heads), then the result line.
+   phase 9, and each kernel's launches in phase 10's data-parallel step
+   (the bf16 rows: the one NCCL rank's; the f32 rows: gloo rank 0's
+   stage-2 step) and in its sharded forward, with a row for B at 4
+   heads and B's launches counted by head count), then the result
+   line.
 """
 
 import functools
@@ -671,6 +673,12 @@ def read_counts():
     it."""
     from egotap_tpu_torch.ops import launch_counts
     return launch_counts()
+
+
+def read_head_counts():
+    """Kernel B's launches through the packed wrapper, by head count."""
+    from egotap_tpu_torch.ops import attention_launches_by_heads
+    return attention_launches_by_heads()
 
 
 # launches per Predictor forward, in every precision
@@ -2287,7 +2295,7 @@ def nccl_world_one(torch, card, tmp):
     """Phase 10 (b) 1: the stage-2 step (phase 5's configuration, bf16,
     batch 32) through one NCCL rank against the single-process step from
     the same state, bit for bit; then 5 more of each, timed. Returns the
-    rank's launches of one step."""
+    rank's launches of one step and kernel B's by head count."""
     import os
     from egotap_tpu_torch.core.config import Config
     from egotap_tpu_torch.parallel import mesh
@@ -2310,7 +2318,7 @@ def nccl_world_one(torch, card, tmp):
             torch.cuda.synchronize()
             runs[label] = (task, state, read_counts(),
                            {k: float(v) for k, v in loss.items()},
-                           snapshot(torch, state))
+                           snapshot(torch, state), read_head_counts())
         diff = differing(runs["nccl"][4], runs["single"][4])
         same_loss = runs["nccl"][3] == runs["single"][3]
         print(f"  one NCCL rank vs one process, one bf16 step of batch 32: "
@@ -2335,7 +2343,7 @@ def nccl_world_one(torch, card, tmp):
         print(f"  step median over 5, interleaved: one process "
               f"{ms['single']:.3f} ms, one NCCL rank {ms['nccl']:.3f} ms "
               f"({100 * (ms['nccl'] / ms['single'] - 1):+.2f}%) [{card}]")
-        return runs["nccl"][2]
+        return {"launches": runs["nccl"][2], "heads": runs["nccl"][5]}
     finally:
         mesh.shutdown()
         empty_cache(torch)
@@ -2400,7 +2408,9 @@ def phase_data_parallel(torch, card, tmp, cli_tmp):
     """Phase 10 (b): one NCCL rank; two gloo ranks sharing cuda:0 for a
     stage-2 and a stage-1 f32 step against one process at the global
     batch, with the per-rank-statistics controls; a 2-rank cli.train +
-    cli.test on phase 8's dataset against a 1-rank cli.test."""
+    cli.test on phase 8's dataset against a 1-rank cli.test. Returns the
+    launches of one step, kernel B's by head count beside them: the NCCL
+    rank's bf16 step and rank 0's f32 stage-2 step, by dtype."""
     import os
 
     import numpy as np
@@ -2408,7 +2418,7 @@ def phase_data_parallel(torch, card, tmp, cli_tmp):
     from egotap_tpu_torch.core.config import PRESETS, Config
     from egotap_tpu_torch.data.pipeline import make_loader
     from egotap_tpu_torch.train.tasks import HeatmapTask, LifterTask
-    nccl_counts = nccl_world_one(torch, card, tmp)
+    counts = {torch.bfloat16: nccl_world_one(torch, card, tmp)}
 
     out = os.path.join(tmp, "dp2")
     gen = torch.Generator(device="cuda").manual_seed(32)
@@ -2443,6 +2453,9 @@ def phase_data_parallel(torch, card, tmp, cli_tmp):
         controls = [torch.load(os.path.join(out, f"control{r}_{j}.pt"),
                                weights_only=True) for r in range(2)]
         got = ranks[0]
+        if label == "stage 2":
+            counts[torch.float32] = {"launches": got["launches"],
+                                     "heads": got["heads"]}
         gap = max(loss_gap(k, got["losses"][k], v)
                   for k, v in job["losses"].items())
         mine = torch.cat([got["grads"][k].float().flatten()
@@ -2510,7 +2523,7 @@ def phase_data_parallel(torch, card, tmp, cli_tmp):
     if worst > CLI_RTOL:
         raise AssertionError("2-rank and 1-rank test means disagree")
     empty_cache(torch)
-    return nccl_counts
+    return counts
 
 
 def attention_tp_rows(torch, F, card):
@@ -2569,7 +2582,7 @@ def phase_sharded_serving(torch, F, card):
     calib = [rgb + 0.1 * torch.randn(rgb.shape, generator=g, device="cuda")
              for _ in range(2)]
     devices = [torch.device("cuda", 0)] * (TP_DATA * TP_MODEL)
-    counts = {}
+    counts, heads = {}, {}
     for label in ("f32", "bf16", "int8"):
         pred = Predictor(bf16=label != "f32", int8=label == "int8", seed=0)
         if label == "int8":
@@ -2581,10 +2594,13 @@ def phase_sharded_serving(torch, F, card):
         torch.cuda.synchronize()
         reset_counts()
         got = pred(rgb)
-        counts[label] = read_counts()
-        if counts[label] != PER_TP_FORWARD:
-            raise AssertionError(f"sharded {label}: launches "
-                                 f"{counts[label]}, expected {PER_TP_FORWARD}")
+        counts[label], heads[label] = read_counts(), read_head_counts()
+        want_heads = {8 // TP_MODEL: PER_TP_FORWARD["attention"]}
+        if counts[label] != PER_TP_FORWARD or heads[label] != want_heads:
+            raise AssertionError(
+                f"sharded {label}: launches {counts[label]}, kernel B by "
+                f"heads {heads[label]}, expected {PER_TP_FORWARD}, "
+                f"{want_heads}")
         ragged = pred(rgb[:31])
         err, scale = max_dev(got, want)
         err31, scale31 = max_dev(ragged, want31)
@@ -2592,7 +2608,8 @@ def phase_sharded_serving(torch, F, card):
         print(f"  {label}: sharded 2 data x 2 model vs unsharded: batch 32 "
               f"max_abs_err {err:.3e}, ragged 31 {err31:.3e} (tol "
               f"{SHARD_TOL[label]:.0e} x max {scale:.3e}); launches a "
-              f"forward {counts[label]}; forward median "
+              f"forward {counts[label]}, kernel B by heads {heads[label]}; "
+              f"forward median "
               f"{times['unsharded']:.3f} ms unsharded, {times['2 x 2']:.3f} "
               f"ms sharded [{card}; 4 shards on one card, no multi-GPU "
               f"result]")
@@ -2607,7 +2624,7 @@ def phase_sharded_serving(torch, F, card):
                   f"over unsharded [{card}]")
         del pred
         empty_cache(torch)
-    return rows, counts
+    return rows, {"launches": counts, "heads": heads}
 
 
 def phase_parallel(torch, F, card, tmp):
@@ -2706,13 +2723,24 @@ def main() -> int:
     launches[("fused_layer1", torch.bfloat16)] = fused
     for dt, c in unpacked.items():
         launches[("attention_unpacked", dt)] = c
-    # kernel B at a tensor-parallel shard's 4 heads: its launches a sharded
-    # forward (bf16: the bf16 one; f32: the f32 one)
+    # phase 10's measured launches by dtype: one data-parallel step (bf16:
+    # the NCCL rank's; f32: gloo rank 0's stage-2 step) and one sharded
+    # forward (bf16: the bf16 one; f32: the f32 one), kernel B's split by
+    # head count: 8 for the model's own rows, 8 / TP_MODEL for a
+    # tensor-parallel shard's
     rows.update(parallel["rows"])
-    tp = {torch.bfloat16: parallel["tp_counts"]["bf16"],
-          torch.float32: parallel["tp_counts"]["f32"]}
+    dp = parallel["dp_counts"]
+    tp = {dt: {k: v[label] for k, v in parallel["tp_counts"].items()}
+          for dt, label in ((torch.bfloat16, "bf16"),
+                            (torch.float32, "f32"))}
+
+    def launched(run, key):
+        heads = {"attention": 8, "attention_tp": 8 // TP_MODEL}
+        if key in heads:
+            return run["heads"].get(heads[key], 0)
+        return run["launches"][key]
     for dt in (torch.float32, torch.bfloat16):
-        launches[("attention_tp", dt)] = tp[dt]["attention"]
+        launches[("attention_tp", dt)] = launched(tp[dt], "attention_tp")
 
     meta = {
         "upsample": ("upsample2x_align_corners", "cuda",
@@ -2765,15 +2793,10 @@ def main() -> int:
                 variants["train_counts"][key] / TRAIN_STEPS
             kernels[-1]["lstm_cli_launches"] = {
                 run: c[key] for run, c in variants["cli"].items()}
-        # phase 10: one NCCL rank's bf16 training step (B at 8 heads) and
-        # a sharded forward over 2 data x 2 model shards (B at 4 heads;
-        # bf16, and f32 for the f32 rows)
-        dp_n = parallel["dp_counts"].get(key, 0) \
-            if dt == torch.bfloat16 else 0
-        tp_n = {"attention": 0, "attention_tp": tp[dt]["attention"]}.get(
-            key, tp[dt].get(key, 0))
-        kernels[-1]["dp_train_step_launches"] = dp_n
-        kernels[-1]["tp_serve_launches"] = tp_n
+        # phase 10: a data-parallel step and a sharded forward over 2 data
+        # x 2 model shards, in the row's dtype
+        kernels[-1]["dp_train_step_launches"] = launched(dp[dt], key)
+        kernels[-1]["tp_serve_launches"] = launched(tp[dt], key)
         # stage 1 trains in bf16: A's launches a step and its backward
         if (key, dt) == ("upsample", torch.bfloat16):
             kernels[-1]["train1_step_launches"] = \

@@ -159,14 +159,12 @@ def merge_partial_weights(target: nn.Module, source: StateDict,
 
 
 def load_partial_weights(target: nn.Module, checkpoint_path: str,
-                         parts: Iterable[str], net: str = "net"
-                         ) -> List[str]:
+                         parts: Iterable[str]) -> List[str]:
     """`merge_partial_weights` from a checkpoint: a port ``ckpt_{tag}``
-    directory (its trained ``net``, or ``frozen[net]``) or a reference
-    ``.pth`` (DataParallel prefixes stripped)."""
+    directory (its trained net) or a reference ``.pth`` (DataParallel
+    prefixes stripped)."""
     if os.path.isdir(checkpoint_path):
-        saved = read_checkpoint(checkpoint_path)
-        source = saved["net"] if net == "net" else saved["frozen"][net]
+        source = read_checkpoint(checkpoint_path)["net"]
     else:
         source = strip_module_prefix(torch.load(
             checkpoint_path, map_location="cpu", weights_only=True))

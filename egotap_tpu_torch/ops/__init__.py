@@ -73,4 +73,12 @@ def launch_counts(reset: bool = False) -> dict:
     if reset:
         for w in wrappers.values():
             w.launches = 0
+        attention.multihead_attention_packed.launches_by_heads.clear()
     return {n: w.launches for n, w in wrappers.items()}
+
+
+def attention_launches_by_heads() -> dict:
+    """Kernel B's launches through the packed wrapper, by head count
+    (zeroed with ``launch_counts(reset=True)``)."""
+    from egotap_tpu_torch.ops import attention
+    return dict(attention.multihead_attention_packed.launches_by_heads)

@@ -123,10 +123,14 @@ def multihead_attention_packed(q: torch.Tensor, k: torch.Tensor,
         return attention_packed_plain(q, k, v, heads)
     out = _KernelB.apply(q, k, v, heads)
     multihead_attention_packed.launches += 1
+    by_heads = multihead_attention_packed.launches_by_heads
+    by_heads[heads] = by_heads.get(heads, 0) + 1
     return out
 
 
 multihead_attention_packed.launches = 0
+# the same launches by head count (a tensor-parallel shard runs fewer heads)
+multihead_attention_packed.launches_by_heads = {}
 
 
 def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor

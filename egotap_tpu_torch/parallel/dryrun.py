@@ -3,9 +3,8 @@
 The torch twin of `__graft_entry__.py:dryrun_multichip`: it spawns
 ``--nproc`` ranks of itself, joined through a `torch.distributed.FileStore`
 in ``--out`` (no ports), waits for each (``--timeout`` seconds) and fails
-when one fails. On one machine with fewer cards than ranks, the ranks
-share the card named by ``--device`` over gloo (NCCL refuses two ranks on
-one device).
+when one fails. Ranks given one indexed card (``--device cuda:0``) share
+it; they need ``--backend gloo``, as NCCL refuses two ranks on one device.
 
     python -m egotap_tpu_torch.parallel.dryrun --nproc 2 --device cpu \\
         --out /tmp/dry                       # the multi-chip dry run
@@ -20,7 +19,8 @@ Modes (``--mode``, one or more, run in order by the same ranks):
     rank r's rows ``[r * b, (r + 1) * b)`` of the preprocessed batch
     ``--batch`` (an ``.npz``); each of the three flags may be repeated,
     one step a job. Each rank saves its losses, net, frozen nets,
-    gradients, kernel launches and the step's wall time as
+    gradients, kernel launches (and kernel B's by head count) and the
+    step's wall time as
     ``{out}/rank{r}_{job}.pt``; with
     ``--control``, then the faulty control from the same state
     (BatchNorm statistics per rank) as ``{out}/control{r}_{job}.pt``.
@@ -50,8 +50,8 @@ def _args(argv):
     p.add_argument("--nproc", type=int, default=2)
     p.add_argument("--device", default="cuda")
     p.add_argument("--backend", default=None,
-                   help="default: gloo when ranks share a device or run on "
-                   "the CPU, else NCCL")
+                   help="default: NCCL for CUDA ranks, gloo on the CPU "
+                   "(ranks sharing one card need gloo)")
     p.add_argument("--mode", nargs="+", default=["dryrun"],
                    choices=("dryrun", "step", "cli", "probe"),
                    help="one or more, run in order in the same ranks")
@@ -64,16 +64,6 @@ def _args(argv):
     p.add_argument("--rank", type=int, default=None)
     p.add_argument("rest", nargs="*")
     return p.parse_args(argv)
-
-
-def _backend(args) -> str:
-    if args.backend:
-        return args.backend
-    dev = torch.device(args.device)
-    shared = dev.type == "cuda" and (dev.index is not None
-                                     or torch.cuda.device_count()
-                                     < args.nproc)
-    return "gloo" if dev.type == "cpu" or shared else "nccl"
 
 
 def launch(argv) -> int:
@@ -112,7 +102,7 @@ def _rank_main(args) -> None:
     store = torch.distributed.FileStore(os.path.join(args.out, "store"),
                                         args.nproc)
     dp = mesh.init(args.device, rank=args.rank, world_size=args.nproc,
-                   store=store, backend=_backend(args))
+                   store=store, backend=args.backend)
     try:
         for mode in args.mode:
             {"dryrun": _dryrun, "step": _step, "cli": _cli,
@@ -131,7 +121,7 @@ def _cfg(config: str, **fields):
 def _step(args, dp) -> None:
     """Each job's training step from its ``--init`` on this rank's rows
     (and with ``--control`` the faulty control)."""
-    from egotap_tpu_torch.ops import launch_counts
+    from egotap_tpu_torch.ops import attention_launches_by_heads, launch_counts
     from egotap_tpu_torch.train import state as state_lib
     from egotap_tpu_torch.train.tasks import create_task
     for job, (config, init, path) in enumerate(zip(args.config, args.init,
@@ -162,7 +152,9 @@ def _step(args, dp) -> None:
             _sync(dp)
             seconds = time.perf_counter() - t0
             torch.save({"losses": {k: float(v) for k, v in losses.items()},
-                        "launches": launch_counts(), "seconds": seconds,
+                        "launches": launch_counts(),
+                        "heads": attention_launches_by_heads(),
+                        "seconds": seconds,
                         "net": state_lib._cpu_state_dict(state.net),
                         "frozen": {k: state_lib._cpu_state_dict(m)
                                    for k, m in state.frozen.items()},

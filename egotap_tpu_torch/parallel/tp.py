@@ -85,7 +85,10 @@ class _Part:
         def cut(t):
             if t is None:
                 return None
-            return t.chunk(count, dim)[index].contiguous().to(device)
+            # a copy on every device, the home one too: a view would keep
+            # the full weight alive there
+            return t.chunk(count, dim)[index].to(
+                device, copy=True, memory_format=torch.contiguous_format)
 
         self.device = device
         self.w_q = self.w_scale = None

@@ -8,7 +8,8 @@ themselves are held to their plain versions on the card
 import pytest
 import torch
 
-from egotap_tpu_torch.ops import _build
+from egotap_tpu_torch.ops import (_build, attention_launches_by_heads,
+                                  launch_counts)
 from egotap_tpu_torch.ops import attention as att
 from egotap_tpu_torch.ops import fused_layer1 as fl
 from egotap_tpu_torch.ops import pu_kernel
@@ -178,6 +179,23 @@ def test_pu_chain_refusals_launch_nothing(fake):
     with pytest.raises(NotImplementedError, match="do not fit"):
         pu_kernel.pu_chain_fused(*_pu_args(h=137, dtype=torch.float32))
     assert not fake.calls
+
+
+def test_attention_launches_counted_by_heads(fake):
+    """Kernel B's packed launches are counted by head count beside their
+    total (a tensor-parallel shard runs fewer heads); the plain CPU
+    version counts nothing, and a reset clears both."""
+    launch_counts(reset=True)
+    for heads in (2, 4, 2):
+        att.multihead_attention_packed(
+            *(_meta(1, 8, heads * 128) for _ in range(3)), heads)
+    att.multihead_attention_packed(*(torch.zeros(1, 8, 256)
+                                     for _ in range(3)), 2)
+    assert len(fake.calls) == 3
+    assert attention_launches_by_heads() == {2: 2, 4: 1}
+    assert launch_counts()["attention"] == 3
+    launch_counts(reset=True)
+    assert attention_launches_by_heads() == {}
 
 
 def test_barrier_walk_is_not_counted(fake):

@@ -13,7 +13,7 @@ import torch
 from egotap_tpu_torch.models.resnet import BasicBlock
 from egotap_tpu_torch.ops import attention as att
 from egotap_tpu_torch.ops import fused_layer1 as fl
-from egotap_tpu_torch.ops import kernel_errors
+from egotap_tpu_torch.ops import attention_launches_by_heads, kernel_errors
 from egotap_tpu_torch.ops import pu_kernel
 from egotap_tpu_torch.ops import upsample as up
 from egotap_tpu_torch.serving import init_weights
@@ -505,8 +505,11 @@ def test_attention_tensor_parallel_shard(gen, dtype):
     q, k, v = (torch.randn(16, 576, 4 * 128, generator=gen,
                            device="cuda").to(dt) for _ in range(3))
     before = att.multihead_attention_packed.launches
+    by_heads = attention_launches_by_heads()
     got = att.multihead_attention_packed(q, k, v, 4)
     assert att.multihead_attention_packed.launches == before + 1
+    assert attention_launches_by_heads() == {
+        **by_heads, 4: by_heads.get(4, 0) + 1}
     _close(got, att.attention_packed_plain(q, k, v, 4), att.TOL[dt])
 
 

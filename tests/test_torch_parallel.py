@@ -2,11 +2,12 @@
 small size: the per-rank loader plans (`make_host_sharded_loader`), and
 data-parallel training and evaluation over
 two gloo ranks spawned by ``python -m egotap_tpu_torch.parallel.dryrun``
-(a FileStore, one thread a rank): a stage-1 step against JAX's 2-device
-`data_parallel_setup` step, a stage-2 step against the port's single
-process at the global batch (the frozen nets' train-mode BatchNorm under
-no_grad), each with the faulty control of per-rank BatchNorm
-statistics, and the test CLI's means over 2 ranks against 1 rank's.
+(a FileStore, one thread a rank): a stage-1 and a stage-2 step against
+JAX's 2-device `data_parallel_setup` step (stage 2: the frozen nets'
+train-mode BatchNorm under no_grad; its gradient against the port's
+single process at the global batch), each with the faulty control of
+per-rank BatchNorm statistics, and the test CLI's means over 2 ranks
+against 1 rank's.
 Budgets: docs/PARITY_TABLE.md (f32 forward 1e-5 of max; "Backward path":
 losses rtol 1e-4, parameters and running statistics 1e-4)."""
 
@@ -28,8 +29,10 @@ from egotap_tpu.parallel.mesh import data_parallel_setup
 from egotap_tpu.train import optim as jax_optim
 from egotap_tpu.train import state as jax_state
 from egotap_tpu.train.tasks import HeatmapTask as JaxHeatmapTask
+from egotap_tpu.train.tasks import LifterTask as JaxLifterTask
 from egotap_tpu_torch.cli import test as cli_test
 from egotap_tpu_torch.compat.from_jax import (heatmap_net_state_dict,
+                                              lifter_state_dict,
                                               task_state_from_jax)
 from egotap_tpu_torch.core.config import Config
 from egotap_tpu_torch.data import pipeline
@@ -244,39 +247,59 @@ LIFTER = dict(model="egotap_autoencoder", num_heatmap=15, num_rot_heatmap=15,
 
 @pytest.fixture(scope="module")
 def lifter_run(tmp_path_factory):
-    """A seeded stage-2 state and batch, and the port's single-process
-    step at the global batch of 4 (losses, gradients, the state after)."""
+    """A seeded JAX stage-2 state carried into the port
+    (`task_state_from_jax`) and a batch of 4; the port's 2-rank step and
+    its control from that state, the port's single-process step at the
+    global batch (losses and gradients), and JAX's 2-device
+    `data_parallel_setup` step (losses, the lifter's state and the frozen
+    nets' after it)."""
     tmp = tmp_path_factory.mktemp("lift")
+    jcfg = JaxConfig(patched_heatmap_ae=True, **LIFTER).derive()
+    task = JaxLifterTask(jcfg)
+    jstate = task.init_state(jax.random.PRNGKey(3), 1,
+                             heatmap_vars=heatmap_vars(15, 64, seed=5),
+                             rot_heatmap_vars=heatmap_vars(30, 64, seed=6))
     cfg = Config(**{**LIFTER, "data_parallel": 0}).derive()
-    task = LifterTask(cfg, device="cpu")
-    state = task.init_state(3, 1)
+    state = task_state_from_jax(jax.tree.map(np.array, jstate), cfg, 1,
+                                device="cpu")
     rng = np.random.default_rng(8)
     feed = {"input_rgb": rng.standard_normal((4, 2, 64, 64, 3)),
             "gt_local_pose": 10 * rng.standard_normal((4, 16, 3))}
     feed = {k: v.astype(np.float32) for k, v in feed.items()}
     runs = _step_run(tmp, LIFTER, state, feed)
     shutil.rmtree(tmp, ignore_errors=True)
-    losses, grads = task.step_gradients(state, feed)
-    state.opt.step(dict(state.net.named_parameters()), grads)
-    return runs, {k: float(v) for k, v in losses.items()}, grads, state
+    losses, grads = LifterTask(cfg, device="cpu").step_gradients(state,
+                                                                 feed)
+    mesh, jstate, shard = data_parallel_setup(jcfg, jstate)
+    assert mesh is not None and mesh.shape["data"] == 2
+    jstate, jlosses = task.train_step(jstate, shard(
+        {k: jnp.asarray(v) for k, v in feed.items()}))
+    jstate = jax.device_get(jstate)
+    want = {"net": lifter_state_dict({"params": jstate.params,
+                                      "batch_stats": jstate.batch_stats}),
+            "frozen": {k: heatmap_net_state_dict(jstate.frozen[k])
+                       for k in state.frozen}}
+    assert set(losses) == set(jlosses)
+    return runs, {k: float(v) for k, v in jlosses.items()}, grads, want
 
 
 @pytest.mark.parametrize("local_bn", [False, True])
 def test_two_rank_lifter_step_matches_one_process(lifter_run, local_bn):
-    """Stage 2 over two gloo ranks against one process at the global
-    batch: losses within LOSS_RTOL, the lifter's gradient within GRAD_TOL
-    (relative L2), its parameters and the frozen nets' running
-    statistics (train-mode BatchNorm under no_grad) within STATE_ATOL.
-    The per-rank-statistics control must miss the frozen nets' limit."""
-    runs, losses, grads, state = lifter_run
+    """Stage 2 over two gloo ranks against JAX's step over 2 devices:
+    losses within LOSS_RTOL, the lifter's parameters and BN statistics
+    and the frozen nets' running statistics (train-mode BatchNorm under
+    no_grad, over the global batch) within STATE_ATOL, every rank the
+    same bit for bit; and the lifter's gradient within GRAD_TOL
+    (relative L2) of the port's one process at the global batch. The
+    per-rank-statistics control must miss the frozen nets' limit."""
+    runs, losses, grads, want = lifter_run
     ranks = runs["control" if local_bn else "rank"]
     got = ranks[0]
 
     def running(k):
         return k.endswith(("running_mean", "running_var"))
-    frozen_ok = all(_close(got["frozen"][name], net.state_dict(),
-                           STATE_ATOL, running)[0]
-                    for name, net in state.frozen.items())
+    frozen_ok = all(_close(got["frozen"][name], sd, STATE_ATOL, running)[0]
+                    for name, sd in want["frozen"].items())
     if local_bn:
         assert not frozen_ok
         return
@@ -290,7 +313,8 @@ def test_two_rank_lifter_step_matches_one_process(lifter_run, local_bn):
     mine = torch.cat([got["grads"][k].reshape(-1) for k, g in grads.items()
                       if g is not None])
     assert float((mine - flat).norm() / flat.norm()) <= GRAD_TOL
-    ok, worst = _close(got["net"], state.net.state_dict(), STATE_ATOL)
+    ok, worst = _close(got["net"], want["net"], STATE_ATOL,
+                       lambda k: not k.endswith("num_batches_tracked"))
     assert ok, worst
 
 

@@ -21,8 +21,9 @@ from egotap_tpu.parallel.tp import lifter_tp_shardings
 from egotap_tpu.serving import Predictor as JaxPredictor
 from egotap_tpu_torch.compat.from_jax import (install_jax_scales,
                                               port_module_name)
+from egotap_tpu_torch.models.vit import ViTBlock
 from egotap_tpu_torch.ops.quant import Calibrated
-from egotap_tpu_torch.parallel.tp import split_dim
+from egotap_tpu_torch.parallel.tp import TensorParallelBlock, split_dim
 from egotap_tpu_torch.serving import Predictor, serving_config
 from tests.test_torch_compat import lifter_vars
 from tests.test_torch_predictor import SMALL, TOL, weights  # noqa: F401
@@ -189,6 +190,36 @@ def test_ragged_dynamic_int8_warns_once(weights):  # noqa: F811
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         pred(rgb)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_shards_own_their_storage(weights, int8):  # noqa: F811
+    """Each device's part of a split weight (float, or int8 after
+    quantizing) is a copy of 1 / num_model of it, the home device's too,
+    and the module keeps no full weight: tensor parallelism saves
+    parameter memory on every device of the group."""
+    _, states = weights
+    pred = _port(states, int8=int8).shard(2, num_model=2,
+                                          devices=["cpu"] * 4)
+    full = dict(_port(states).lifter.named_modules())
+    blocks = [(name, m) for _, nets in pred._replicas
+              for name, m in nets[2].named_modules()
+              if isinstance(m, TensorParallelBlock)]
+    vit = [m for m in full.values() if isinstance(m, ViTBlock)]
+    assert vit and len(blocks) == 2 * len(vit)      # a copy a replica
+    for path, block in blocks:
+        mods = dict(block.block.named_modules())
+        assert block.parts
+        for name, parts in block.parts.items():
+            whole = full[path].get_submodule(name).weight.numel()
+            for part in parts:
+                t = part.w_q if int8 else part.weight
+                assert t.numel() * 2 == whole
+                assert t.untyped_storage().nbytes() == \
+                    t.numel() * t.element_size()
+            assert mods[name].weight.numel() == 0
+            if int8:
+                assert mods[name].w_q.numel() == 0
 
 
 def test_shard_refuses_missing_devices(weights):  # noqa: F811
