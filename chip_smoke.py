@@ -157,7 +157,30 @@ Exits non-zero, printing no result, when there is no card. Phases:
    phase 3's bf16 and int8 budgets), launches a forward A 12, B 12, C 2;
    the bf16 forward's time unsharded and over 1 x 2 and 2 x 2 shards.
    Each part's wall time.
-11. One JSON line with every kernel's numbers (with each bf16 kernel's
+11. The Bottleneck nets and the fused net at full width. (a) resnet50
+   `Predictor`s (Grid-ViT 1024 x 3 x 8 heads, PU hidden 512, seeded
+   weights) serve 3 requests of (32, 2, 256, 256, 3) in bf16, f32 and
+   calibrated int8, launches A 6, B 3, C 1, D 0 a forward; bf16 vs f32
+   and int8 vs bf16 within phase 3's limits; the f32 heatmap stack at
+   batch 1 on 128 x 128 images against the same nets on the CPU (1e-4 of
+   max); a resnet101 bf16 `Predictor` likewise (3 requests). (b)
+   `HeatmapTask.train_step` with the unrealego_heatmap_joint preset and a
+   resnet50 net, as in phase 7 (12 bf16 steps of batch 16 on a fixed
+   batch: the median of the last 10, pairs/s, A 3 launches and 3
+   backward recomputes a step, every parameter and running statistic
+   moved, a falling loss), then one f32 step of batch 2 on 128 x 128
+   images card vs CPU with its control. (c) `FusedHeatmapUNet` built by
+   `fuse_heatmap_variables` from phase 3's two resnet18 nets at (32, 2,
+   256, 256, 3): f32 within 2e-4 of the separate nets, bf16 within 2e-2
+   of max, A 3 launches a forward, fused and separate forwards timed.
+   (d) Kernel A against its plain version at the resnet50 decoder's
+   shapes (32, 8, 8, 4096), (32, 16, 16, 4096), (32, 32, 32, 2048), as in
+   phase 2, in a process of its own, run first (after phase 10 this
+   process's profiler dropped most of A's launches). (e) `ConvHeatmapEncoder`, `HeatmapDecoder` and the S2D-stem
+   resnet18 encoder, f32 card vs CPU (1e-4 of max); the S2D stem vs the
+   plain stem of the same weight on the card (1e-5 of max), both timed.
+   Each part's wall time.
+12. One JSON line with every kernel's numbers (with each bf16 kernel's
    launches per training and eval step, A's per stage-1 step, the
    backward recompute time a launch of A (stage 1), B and C, the
    launches of A, B and C in each CLI run of phase 8, each bf16
@@ -165,8 +188,10 @@ Exits non-zero, printing no result, when there is no card. Phases:
    phase 9, and each kernel's launches in phase 10's data-parallel step
    (the bf16 rows: the one NCCL rank's; the f32 rows: gloo rank 0's
    stage-2 step) and in its sharded forward, with a row for B at 4
-   heads and B's launches counted by head count), then the result
-   line.
+   heads and B's launches counted by head count, and a row for A at the
+   resnet50 decoder's widths with its launches in phase 11's resnet50
+   forwards, resnet101 forward, stage-1 step and fused forward), then the
+   result line.
 """
 
 import functools
@@ -351,31 +376,22 @@ def attention_bound(torch, q):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_kernels(torch, F, card):
-    from egotap_tpu_torch.models.layers import BN_EPS
-    from egotap_tpu_torch.models.resnet import BasicBlock
-    from egotap_tpu_torch.ops import (attention, fused_layer1, pu_kernel,
-                                      upsample)
-    from egotap_tpu_torch.ops.attention import (attention_packed_plain,
-                                                multihead_attention,
-                                                multihead_attention_packed)
-    from egotap_tpu_torch.ops.fused_layer1 import (fused_layer1_int8,
-                                                   fused_layer1_plain,
-                                                   pack_blocks)
-    from egotap_tpu_torch.ops.quant import (Calibrated, f32_scalar, im2col,
-                                            install_scales, int8_matmul,
-                                            prequantize, quantized_conv,
-                                            set_calibrating)
-    from egotap_tpu_torch.serving import init_weights
-    from egotap_tpu_torch.ops.pu_kernel import pu_chain_fused, pu_chain_plain
+# kernel A's three calls a net at batch 32: the resnet18 decoder's, and
+# the resnet50/101 decoder's (fs = 4 x 2 views: 4096, 4096, 2048 channels)
+RESNET18_SHAPES = [(32, 8, 8, 1024), (32, 16, 16, 1024), (32, 32, 32, 512)]
+RESNET50_SHAPES = [(32, 8, 8, 4096), (32, 16, 16, 4096), (32, 32, 32, 2048)]
+
+
+def upsample_rows(torch, F, card, key, shapes, g, failures):
+    """Kernel A against its plain version at ``shapes`` in f32 and bf16
+    (its resources, the faulty bf16 control, times, the device time of a
+    launch, the bound, F.interpolate); rows {(key, dtype): sums over the
+    shapes}."""
+    from egotap_tpu_torch.ops import upsample
     from egotap_tpu_torch.ops.upsample import (upsample2x_align_corners,
                                                upsample2x_plain)
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(0)
-    rows, failures = {}, []
-
-    # ---- A: upsample at the decoder's three grids (one net's calls)
-    shapes = [(32, 8, 8, 1024), (32, 16, 16, 1024), (32, 32, 32, 512)]
+    rows = {}
     for dt in (torch.float32, torch.bfloat16):
         tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                "bound_ms": 0.0, "device_ms": 0.0, "max_abs_err": 0.0}
@@ -421,7 +437,33 @@ def phase_kernels(torch, F, card):
                          ("bound_ms", bound), ("device_ms", dms)):
                 tot[k] += v
             tot["max_abs_err"] = max(tot["max_abs_err"], err)
-        rows[("upsample", dt)] = dict(tot, bound_by="bytes")
+        rows[(key, dt)] = dict(tot, bound_by="bytes")
+    return rows
+
+
+def phase_kernels(torch, F, card):
+    from egotap_tpu_torch.models.layers import BN_EPS
+    from egotap_tpu_torch.models.resnet import BasicBlock
+    from egotap_tpu_torch.ops import attention, fused_layer1, pu_kernel
+    from egotap_tpu_torch.ops.attention import (attention_packed_plain,
+                                                multihead_attention,
+                                                multihead_attention_packed)
+    from egotap_tpu_torch.ops.fused_layer1 import (fused_layer1_int8,
+                                                   fused_layer1_plain,
+                                                   pack_blocks)
+    from egotap_tpu_torch.ops.quant import (Calibrated, f32_scalar, im2col,
+                                            install_scales, int8_matmul,
+                                            prequantize, quantized_conv,
+                                            set_calibrating)
+    from egotap_tpu_torch.serving import init_weights
+    from egotap_tpu_torch.ops.pu_kernel import pu_chain_fused, pu_chain_plain
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows, failures = {}, []
+
+    # ---- A: upsample at the decoder's three grids (one net's calls)
+    rows.update(upsample_rows(torch, F, card, "upsample", RESNET18_SHAPES,
+                              g, failures))
 
     # ---- B: packed attention at the Grid-ViT's shape
     for dt in (torch.float32, torch.bfloat16):
@@ -1319,14 +1361,15 @@ def check_targets(torch, feed, cpu_feed):
     return worst
 
 
-def train1_run(torch, preset, card):
+def train1_run(torch, preset, card, **overrides):
     """TRAIN_STEPS bf16 stage-1 steps at full width on one fixed batch
-    rendered on the card; returns the state and what was counted."""
+    rendered on the card (``overrides`` over the preset); returns the
+    state and what was counted."""
     from egotap_tpu_torch.breakdown import raw_stage1_batch
     from egotap_tpu_torch.core.config import Config
     from egotap_tpu_torch.data.pipeline import make_device_preprocess
     from egotap_tpu_torch.train.tasks import HeatmapTask
-    cfg = Config.from_preset(preset)
+    cfg = Config.from_preset(preset, **overrides)
     raw = raw_stage1_batch(cfg.batch_size, seed=30)
     pre = make_device_preprocess(cfg)
     feed = pre(raw)
@@ -1409,19 +1452,23 @@ def eval_card_vs_cpu(torch, state, feed, preset):
         raise AssertionError("stage-1 eval step: card and CPU disagree")
 
 
-def train1_card_vs_cpu(torch, card):
-    """One f32 stage-1 step of batch 2 (joint preset, full width) on the
-    card against the CPU, and the same check rejecting kernel A's output
-    detached from the graph. The weights come from `serving.init_weights`
-    (biases and BatchNorm affine non-zero): with the reference init's zero
-    biases many ReLU inputs sit exactly on the kink."""
+def train1_card_vs_cpu(torch, card, held="", **overrides):
+    """One f32 stage-1 step of batch 2 (joint preset, full width;
+    ``overrides`` over it) on the card against the CPU, and the same check
+    rejecting kernel A's output detached from the graph. The weights come
+    from `serving.init_weights` (biases and BatchNorm affine non-zero):
+    with the reference init's zero biases many ReLU inputs sit exactly on
+    the kink. The gradients held to TRAIN_GRAD_TOL are those of the
+    parameters named ``held...`` (all by default); the whole net's is
+    printed beside."""
     from egotap_tpu_torch.breakdown import raw_stage1_batch
     from egotap_tpu_torch.core.config import Config
     from egotap_tpu_torch.data.pipeline import make_device_preprocess
     from egotap_tpu_torch.models import heatmap_net
     from egotap_tpu_torch.serving import init_weights
     from egotap_tpu_torch.train.tasks import HeatmapTask
-    cfg = Config.from_preset(STAGE1_PRESETS[0], use_amp=False, batch_size=2)
+    cfg = Config.from_preset(STAGE1_PRESETS[0], use_amp=False, batch_size=2,
+                             **overrides)
     start = HeatmapTask(cfg, device="cpu").init_state(1, 1).net
     init_weights(start, torch.Generator().manual_seed(2))
     weights = start.state_dict()
@@ -1446,18 +1493,25 @@ def train1_card_vs_cpu(torch, card):
         print(f"  f32 stage-1 step ({label}): "
               f"{time.perf_counter() - t0:.2f} s")
     ref_loss, ref_grad = readings["cpu"]
-    ref = flat_grad(torch, ref_grad, ref_grad)
+    held_grad = {n: g for n, g in ref_grad.items() if n.startswith(held)}
+    ref = flat_grad(torch, held_grad, held_grad)
+    whole = flat_grad(torch, ref_grad, ref_grad)
     gaps = {}
     for label in ("cuda", "control"):
         loss, grad = readings[label]
         gap = max(abs(float(loss[k]) - float(ref_loss[k]))
                   / abs(float(ref_loss[k])) for k in ref_loss)
-        rel = float((flat_grad(torch, grad, ref_grad) - ref).norm()
+        rel = float((flat_grad(torch, grad, held_grad) - ref).norm()
                     / ref.norm())
+        if held:
+            rel_whole = float((flat_grad(torch, grad, ref_grad) - whole)
+                              .norm() / whole.norm())
+            print(f"  f32 {label} vs CPU, the whole net's gradient: rel-L2 "
+                  f"{rel_whole:.3e}")
         gaps[label] = rel
         print(f"  f32 {label} vs CPU: loss gap {gap:.3e} (rtol "
-              f"{TRAIN_LOSS_RTOL:.0e}); UNet gradient rel-L2 {rel:.3e} (tol "
-              f"{TRAIN_GRAD_TOL:.0e})")
+              f"{TRAIN_LOSS_RTOL:.0e}); {held or 'UNet'} gradient rel-L2 "
+              f"{rel:.3e} (tol {TRAIN_GRAD_TOL:.0e})")
         if label == "cuda" and (gap > TRAIN_LOSS_RTOL
                                 or rel > TRAIN_GRAD_TOL):
             raise AssertionError("the f32 stage-1 step on the card and the "
@@ -2647,6 +2701,265 @@ def phase_parallel(torch, F, card, tmp):
     return {"rows": rows, "dp_counts": dp_counts, "tp_counts": tp_counts}
 
 
+# the Bottleneck nets and the fused net at full width (phase 11): resnet50
+# and resnet101 heatmap nets behind the serving configuration's lifter
+# (UnrealEgo, Grid-ViT 1024 x 3 x 8 heads, PU hidden 512), seeded weights
+BOTTLENECK_BATCH = 32
+# f32 heatmap stacks of the resnet50 nets, card vs CPU at batch 1 on 128 x
+# 128 images (the full-size CPU forward of ~830M parameters is too slow
+# for the script), relative to max|cpu|: phase 3's limit
+HEATMAP_CPU_TOL = 1e-4
+# the fused net against the two separate nets, f32: the JAX package's own
+# bound (tests/test_fused_heatmap.py:60), absolute; bf16 the heatmap
+# net's bf16 budget (tests/test_torch_heatmap_net.py), relative to max
+FUSED_ATOL_F32, FUSED_TOL_BF16 = 2e-4, 2e-2
+# launches per fused forward: kernel A's three decoder calls (one grouped
+# decoder for both nets)
+PER_FUSED_FORWARD = {"upsample": 3, "attention": 0, "pu_chain": 0,
+                     "attention_unpacked": 0, "fused_layer1": 0}
+# the legacy encoder / decoder and the S2D-stem encoder, f32 card vs CPU,
+# relative to max|cpu| (phase 3's limit); the S2D stem vs the plain stem
+# of the same weight on the card (the same products, summed in another
+# order)
+LEGACY_CPU_TOL, S2D_TOL = 1e-4, 1e-5
+
+
+def rel_dev(got, ref):
+    """max|got - ref| / max|ref| of two tensors or arrays, on the host."""
+    import numpy as np
+    got, ref = (np.asarray(t.float().cpu() if hasattr(t, "cpu") else t,
+                           np.float64) for t in (got, ref))
+    return float(np.abs(got - ref).max() / np.abs(ref).max())
+
+
+def bottleneck_serving(torch, card):
+    """Phase 11 (a): resnet50 `Predictor`s in bf16, f32 and calibrated
+    int8 serve 3 requests each (launches A 6, B 3, C 1, D 0 a forward),
+    held to one another and, in f32 at batch 1 on 128 x 128 images, to
+    the same nets on the CPU; then a resnet101 bf16 `Predictor`."""
+    import copy
+    from egotap_tpu_torch.serving import Predictor, heatmap_stack
+    g = torch.Generator().manual_seed(41)
+    rgb = torch.randn(BOTTLENECK_BATCH, 2, 256, 256, 3, generator=g)
+    rgb_dev = rgb.cuda()
+    small = torch.randn(1, 2, 128, 128, 3, generator=g)
+    gc = torch.Generator(device="cuda").manual_seed(42)
+    calib = [rgb_dev + 0.1 * torch.randn(rgb_dev.shape, generator=gc,
+                                         device="cuda") for _ in range(2)]
+    launches, outputs = {}, {}
+    for label, name, precision in (("bf16", "resnet50", "bf16"),
+                                   ("f32", "resnet50", "f32"),
+                                   ("int8", "resnet50", "int8"),
+                                   ("resnet101 bf16", "resnet101", "bf16")):
+        t0 = time.perf_counter()
+        pred = Predictor(bf16=precision != "f32", int8=precision == "int8",
+                         device="cuda", seed=0, model_name=name)
+        if label == "int8":
+            pred.calibrate(calib)
+        torch.cuda.synchronize()
+        params = sum(p.numel() for n in pred.nets[:2]
+                     for p in n.parameters())
+        print(f"  {name} {precision}: Predictor built in "
+              f"{time.perf_counter() - t0:.2f} s, heatmap nets "
+              f"{params / 1e6:.1f}M parameters")
+        launches[label], outputs[label] = serve(
+            torch, pred, rgb_dev, f"{name} {precision}", card)
+        if label == "f32":
+            got = pred.heatmaps(small.cuda())
+            cpu_nets = [copy.deepcopy(n).cpu() for n in pred.nets[:2]]
+            t0 = time.perf_counter()
+            want = heatmap_stack(*cpu_nets, small, torch.float32)
+            err = rel_dev(got, want)
+            print(f"  f32 heatmap stack card vs CPU, batch 1 at 128 x 128: "
+                  f"{tuple(want.shape)}, max err {err:.3e} of max|cpu| "
+                  f"(tol {HEATMAP_CPU_TOL:.0e}; CPU forward "
+                  f"{time.perf_counter() - t0:.2f} s)")
+            if not err <= HEATMAP_CPU_TOL:
+                raise AssertionError("resnet50 heatmaps: card and CPU "
+                                     "disagree")
+            del cpu_nets
+        del pred
+        empty_cache(torch)
+    for label, ref, tol in (("bf16", "f32", BF16_POSE_TOL),
+                            ("int8", "bf16", INT8_POSE_TOL)):
+        err = rel_dev(outputs[label], outputs[ref])
+        print(f"  resnet50 {label} vs {ref} pose: {err:.3e} of max "
+              f"(tol {tol:.0e})")
+        if not err <= tol:
+            raise AssertionError(f"resnet50 {label} and {ref} disagree")
+    return launches
+
+
+def bottleneck_train1(torch, card):
+    """Phase 11 (b): `HeatmapTask.train_step` with the joint preset and a
+    resnet50 net (bf16 amp, batch 16, 12 steps on a fixed batch; A 3 a
+    step and 3 backward recomputes), then one f32 step of batch 2 on 128
+    x 128 images card vs CPU with its control."""
+    state, feed, run = train1_run(torch, STAGE1_PRESETS[0], card,
+                                  model_name="resnet50")
+    del state, feed
+    empty_cache(torch)
+    # the decoder's gradient: the trunk's is not a continuous function of
+    # rounding at these weights (the same step in f64 on the card and on
+    # the CPU reads 1.1e-2 apart, f32 card vs CPU 1.5e-2)
+    train1_card_vs_cpu(torch, card, held="after_backbone.",
+                       model_name="resnet50", load_size_heatmap=(32, 32))
+    empty_cache(torch)
+    return run
+
+
+def fused_net(torch, card):
+    """Phase 11 (c): `FusedHeatmapUNet` built by `fuse_heatmap_variables`
+    from the two resnet18 nets of phase 3's `Predictor`, at (32, 2, 256,
+    256, 3) in f32 and bf16, against the separate nets; launches; the
+    fused and separate forwards timed."""
+    from egotap_tpu_torch.models.heatmap_net import (FusedHeatmapUNet,
+                                                     fuse_heatmap_variables)
+    from egotap_tpu_torch.serving import (Predictor, cast_matmul_weights,
+                                          heatmap_stack)
+    g = torch.Generator(device="cuda").manual_seed(43)
+    rgb = torch.randn(BOTTLENECK_BATCH, 2, 256, 256, 3, generator=g,
+                      device="cuda")
+    counts = {}
+    for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        pred = Predictor(bf16=dt == torch.bfloat16, device="cuda", seed=0)
+        pos, rot = pred.nets[:2]
+        cfg = pred.cfg
+        fused = FusedHeatmapUNet((cfg.num_heatmap,
+                                  cfg.num_rot_heatmap * cfg.limb_dim),
+                                 cfg.model_name, cfg.views)
+        fused.load_state_dict(fuse_heatmap_variables(
+            [pos.state_dict(), rot.state_dict()]), strict=True)
+        fused.eval().cuda()
+        cast_matmul_weights(fused, dt)
+        x = rgb.to(dt)
+        want = heatmap_stack(pos, rot, rgb, dt)
+        fused(x)
+        torch.cuda.synchronize()
+        reset_counts()
+        got = fused(x)
+        counts[label] = read_counts()
+        if counts[label] != PER_FUSED_FORWARD:
+            raise AssertionError(f"fused {label}: launches {counts[label]}")
+        if dt == torch.float32:
+            err = float((got - want).abs().max())
+            ok, tol = err <= FUSED_ATOL_F32, f"{FUSED_ATOL_F32:.0e} absolute"
+        else:
+            err = rel_dev(got, want)
+            ok, tol = err <= FUSED_TOL_BF16, f"{FUSED_TOL_BF16:.0e} of max"
+        fms = time_ms(torch, lambda: fused(x), iters=5)
+        sms = time_ms(torch, lambda: heatmap_stack(pos, rot, rgb, dt),
+                      iters=5)
+        print(f"  fused {label} {tuple(got.shape)} vs the separate nets: "
+              f"max dev {err:.3e} (tol {tol}); launches {counts[label]}; "
+              f"forward fused {fms:.3f} ms, separate {sms:.3f} ms [{card}]")
+        if not ok:
+            raise AssertionError(f"fused {label} and the separate nets "
+                                 "disagree")
+        del pred, fused, pos, rot
+        empty_cache(torch)
+    return counts
+
+
+def legacy_and_s2d(torch, card):
+    """Phase 11 (e): `ConvHeatmapEncoder` on the serving heatmap stack's
+    shape, `HeatmapDecoder`, and the S2D-stem resnet18 encoder, f32 card
+    vs CPU; the S2D stem vs the plain stem on the card."""
+    import copy
+    import torch.nn.functional as F
+    from egotap_tpu_torch.models.encoders import (ConvHeatmapEncoder,
+                                                  HeatmapDecoder)
+    from egotap_tpu_torch.models.resnet import ResNetEncoder
+    from egotap_tpu_torch.serving import init_weights
+    gen = torch.Generator().manual_seed(44)
+    cases = [("ConvHeatmapEncoder", ConvHeatmapEncoder(90),
+              torch.randn(BOTTLENECK_BATCH, 64, 64, 90, generator=gen)),
+             ("HeatmapDecoder", HeatmapDecoder(128, 15),
+              torch.randn(BOTTLENECK_BATCH, 128, generator=gen)),
+             ("resnet18 encoder, S2D stem",
+              ResNetEncoder("resnet18", stem_s2d=True),
+              torch.randn(4, 256, 256, 3, generator=gen))]
+    for name, module, x in cases:
+        init_weights(module, gen)
+        module.eval()
+        want = module(x)
+        card_module = copy.deepcopy(module).cuda()
+        got = card_module(x.cuda())
+        if isinstance(want, list):
+            got, want = got[-1], want[-1]
+        err = rel_dev(got, want)
+        print(f"  {name}: {tuple(got.shape)}, card vs CPU {err:.3e} of "
+              f"max (tol {LEGACY_CPU_TOL:.0e})")
+        if not err <= LEGACY_CPU_TOL:
+            raise AssertionError(f"{name}: card and CPU disagree")
+    stem = card_module.conv1
+    x = torch.randn(64, 256, 256, 3, generator=gen).cuda()
+    plain = F.conv2d(x.permute(0, 3, 1, 2), stem.weight, None, 2, 3
+                     ).permute(0, 2, 3, 1)
+    err = rel_dev(stem(x), plain)
+    s2d_ms = time_ms(torch, lambda: stem(x), iters=5)
+    plain_ms = time_ms(torch, lambda: F.conv2d(
+        x.permute(0, 3, 1, 2), stem.weight, None, 2, 3), iters=5)
+    print(f"  S2D stem vs the plain stem on (64, 256, 256, 3): {err:.3e} of "
+          f"max (tol {S2D_TOL:.0e}); {s2d_ms:.3f} ms against {plain_ms:.3f} "
+          f"ms [{card}]")
+    if not err <= S2D_TOL:
+        raise AssertionError("the S2D stem and the plain stem disagree")
+
+
+def upsample_rows_fresh(torch, card):
+    """Phase 11 (d) in a process of its own (the kernels already built):
+    after phase 10 the profiler of this process showed 0 and 2 of 20
+    launches of kernel A on an H100, so the device time of a launch is
+    read where nothing ran before. Its output is printed here; returns
+    the rows of `upsample_rows`."""
+    import os
+    code = ("import json, sys, torch, torch.nn.functional as F\n"
+            "import chip_smoke as c\n"
+            "torch.set_grad_enabled(False)\n"
+            "g = torch.Generator(device='cuda').manual_seed(45)\n"
+            "failures = []\n"
+            "rows = c.upsample_rows(torch, F, sys.argv[1], 'upsample_r50',\n"
+            "                       c.RESNET50_SHAPES, g, failures)\n"
+            "print(json.dumps({'failures': failures, 'rows': [\n"
+            "    [str(dt), r] for (_, dt), r in rows.items()]}))\n")
+    out = subprocess.run([sys.executable, "-c", code, card], text=True,
+                         capture_output=True, timeout=600,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = out.stdout.strip().splitlines()
+    print("\n".join(lines[:-1]))
+    if out.returncode != 0:
+        raise AssertionError(f"kernel A at resnet50 widths: exit "
+                             f"{out.returncode}\n{out.stderr[-4000:]}")
+    result = json.loads(lines[-1])
+    if result["failures"]:
+        raise AssertionError(f"kernel A at resnet50 widths: "
+                             f"{result['failures']}")
+    dtypes = {str(dt): dt for dt in (torch.float32, torch.bfloat16)}
+    return {("upsample_r50", dtypes[dt]): r for dt, r in result["rows"]}
+
+
+def phase_bottleneck(torch, card):
+    """Phase 11 (see the module docstring), each part timed."""
+    parts = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        parts[name] = time.perf_counter() - t0
+        return result
+    rows = timed("kernel A", upsample_rows_fresh, torch, card)
+    serving = timed("serving", bottleneck_serving, torch, card)
+    with torch.enable_grad():
+        stage1 = timed("stage 1", bottleneck_train1, torch, card)
+    fused = timed("fused", fused_net, torch, card)
+    timed("legacy and S2D", legacy_and_s2d, torch, card)
+    print("  phase 11 parts: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in parts.items()))
+    return {"serving": serving, "stage1": stage1, "fused": fused,
+            "rows": rows}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2713,6 +3026,13 @@ def main() -> int:
         t10 = time.perf_counter()
         parallel = phase_parallel(torch, F, card, tmp)
         print(f"  phase 10 in {time.perf_counter() - t10:.1f} s")
+
+    print("phase 11: the Bottleneck nets (resnet50, resnet101) and the "
+          "fused net, full width: serving, stage 1, kernel A at resnet50 "
+          "widths, the legacy encoder and decoder, the S2D stem")
+    t11 = time.perf_counter()
+    bottleneck = phase_bottleneck(torch, card)
+    print(f"  phase 11 in {time.perf_counter() - t11:.1f} s")
     print(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     # launches of each row: the int8 forward's (bf16 compute) for the bf16
     # rows, the f32 forward's for the f32 attention and PU chain rows, and
@@ -2802,6 +3122,29 @@ def main() -> int:
             kernels[-1]["train1_step_launches"] = \
                 stage1["counts"][key] / TRAIN_STEPS
             kernels[-1]["backward_ms"] = stage1["backward"]
+    # phase 11: kernel A at the resnet50 decoder's widths, launched by the
+    # resnet50 forwards (bf16 row: the int8 serving forward's, as above;
+    # f32: the f32 forward's) and the resnet50 stage-1 steps
+    served = bottleneck["serving"]
+    for dt, label in ((torch.float32, "f32"), (torch.bfloat16, "int8")):
+        r = bottleneck["rows"][("upsample_r50", dt)]
+        kernels.append({
+            "name": "upsample2x_align_corners_resnet50", "route": "cuda",
+            "source": "egotap_tpu_torch/csrc/upsample.cu",
+            "replaces": "egotap_tpu/ops/upsample.py:98",
+            "launches": served[label]["upsample"],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "dtype": str(dt).removeprefix("torch."),
+            "device_ms": r["device_ms"]})
+        if dt == torch.bfloat16:
+            kernels[-1]["resnet101_serve_launches"] = \
+                served["resnet101 bf16"]["upsample"]
+            kernels[-1]["train1_step_launches"] = \
+                bottleneck["stage1"]["counts"]["upsample"] / TRAIN_STEPS
+            kernels[-1]["fused_serve_launches"] = \
+                bottleneck["fused"]["bf16"]["upsample"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

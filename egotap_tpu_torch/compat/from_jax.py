@@ -9,7 +9,10 @@ mapping in `egotap_tpu/compat/export.py:93-215` (`export_heatmap_net`,
 BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var,
 the ViT specials, the Encoder_Block alias keys, and zero tensors for the
 reference-only tensors its forward never reads (torchvision ``fc``, ViT
-``cls_token`` and ``pooler``).
+``cls_token`` and ``pooler``). The same mapping carries the JAX package's
+other stage-1 modules, which have no reference checkpoint: a
+ResNetEncoder alone (any depth, the S2D stem), `FusedHeatmapUNet`, and
+the legacy `ConvHeatmapEncoder` / `HeatmapDecoder`.
 
 `task_state_from_jax` carries a JAX `HeatmapTask` or `LifterTask`
 training state (the trained net with its running statistics, the frozen
@@ -88,21 +91,46 @@ class _Writer:
             (k, torch.from_numpy(np.array(v))) for k, v in self.out.items())
 
 
-def _resnet(w: _Writer, prefix: str, model_name: str) -> None:
+def _resnet(w: _Writer, prefix: str, model_name: str,
+            root: Tuple[str, ...] = ("backbone",)) -> None:
+    """A ResNetEncoder's variables under ``root`` (Bottleneck nets: three
+    convs a block; the S2D stem keeps ``conv1/kernel``)."""
     kind, depths = RESNET_SPECS[model_name]
     n_convs = 2 if kind == "basic" else 3
-    w.conv(prefix + "conv1", "backbone", "conv1", bias=False)
-    w.bn(prefix + "bn1", "backbone", "bn1")
+    w.conv(prefix + "conv1", *root, "conv1", bias=False)
+    w.bn(prefix + "bn1", *root, "bn1")
     for li, depth in enumerate(depths, start=1):
         for bi in range(depth):
             f, t = f"layer{li}_{bi}", f"{prefix}layer{li}.{bi}"
             for ci in range(1, n_convs + 1):
-                w.conv(f"{t}.conv{ci}", "backbone", f, f"conv{ci}", bias=False)
-                w.bn(f"{t}.bn{ci}", "backbone", f, f"bn{ci}")
-            if w.has("backbone", f, "downsample_0"):
-                w.conv(f"{t}.downsample.0", "backbone", f, "downsample_0",
+                w.conv(f"{t}.conv{ci}", *root, f, f"conv{ci}", bias=False)
+                w.bn(f"{t}.bn{ci}", *root, f, f"bn{ci}")
+            if w.has(*root, f, "downsample_0"):
+                w.conv(f"{t}.downsample.0", *root, f, "downsample_0",
                        bias=False)
-                w.bn(f"{t}.downsample.1", "backbone", f, "downsample_1")
+                w.bn(f"{t}.downsample.1", *root, f, "downsample_1")
+
+
+def _fc_head(w: _Writer, prefix: str, model_name: str) -> None:
+    """torchvision's ``fc`` (zeros: in the checkpoints, never run)."""
+    e = feature_expansion(model_name)
+    w.raw(prefix + "fc.weight", np.zeros((1000, 512 * e), np.float32))
+    w.raw(prefix + "fc.bias", np.zeros((1000,), np.float32))
+
+
+def resnet_state_dict(variables: Dict[str, Any],
+                      model_name: str = "resnet18"
+                      ) -> "collections.OrderedDict[str, torch.Tensor]":
+    """A JAX ResNetEncoder's own variables -> the port's `ResNetEncoder`
+    state_dict (torchvision's keys)."""
+    w = _Writer(variables)
+    _resnet(w, "", model_name, root=())
+    _fc_head(w, "", model_name)
+    return w.state_dict()
+
+
+_DECODER = ("layer1_1x1", "layer2_1x1", "layer3_1x1", "layer4_1x1",
+            "conv_up1", "conv_up2", "conv_up3")
 
 
 def heatmap_net_state_dict(variables: Dict[str, Any],
@@ -112,9 +140,7 @@ def heatmap_net_state_dict(variables: Dict[str, Any],
     w = _Writer(variables)
     canon = "backbone.backbone.backbone."
     _resnet(w, canon, model_name)
-    e = feature_expansion(model_name)
-    w.raw(canon + "fc.weight", np.zeros((1000, 512 * e), np.float32))
-    w.raw(canon + "fc.bias", np.zeros((1000,), np.float32))
+    _fc_head(w, canon, model_name)
     # Encoder_Block aliases: layer0 = (conv1, bn1, relu), layer1 =
     # (maxpool, resnet.layer1), layer2..4 = resnet.layer2..4
     alias = {}
@@ -126,10 +152,59 @@ def heatmap_net_state_dict(variables: Dict[str, Any],
             if rest.startswith(src):
                 alias["backbone.backbone." + dst + rest[len(src):]] = v
     w.out.update(alias)
-    for name in ("layer1_1x1", "layer2_1x1", "layer3_1x1", "layer4_1x1",
-                 "conv_up1", "conv_up2", "conv_up3"):
+    for name in _DECODER:
         w.conv(f"after_backbone.{name}.0", name, "conv")
     w.conv("after_backbone.conv_heatmap", "conv_heatmap")
+    return w.state_dict()
+
+
+def fused_heatmap_state_dict(variables: Dict[str, Any],
+                             model_name: str = "resnet18"
+                             ) -> "collections.OrderedDict[str, torch.Tensor]":
+    """FusedHeatmapUNet variables -> the port's `FusedHeatmapUNet`
+    state_dict (grouped kernels (k, k, in/G, out) -> (out, in/G, k, k),
+    PyTorch's grouped layout)."""
+    w = _Writer(variables)
+    _resnet(w, "backbone.", model_name)
+    for name in _DECODER:
+        w.conv(f"{name}.0", name, "conv")
+    g = 0
+    while w.has(f"conv_heatmap_g{g}"):
+        w.conv(f"conv_heatmap_g{g}", f"conv_heatmap_g{g}")
+        g += 1
+    return w.state_dict()
+
+
+def _fc_blocks(w: _Writer, names) -> None:
+    for n in names:
+        w.linear(f"{n}.fc", n, "fc")
+        w.bn(f"{n}.bn", n, "bn")
+
+
+def conv_encoder_state_dict(variables: Dict[str, Any]
+                            ) -> "collections.OrderedDict[str, torch.Tensor]":
+    """ConvHeatmapEncoder variables -> the port's `ConvHeatmapEncoder`."""
+    w = _Writer(variables)
+    for i in (1, 2, 3):
+        w.conv(f"conv{i}.conv", f"conv{i}", "conv")
+        w.bn(f"conv{i}.bn", f"conv{i}", "bn")
+    _fc_blocks(w, ("fc1", "fc2", "fc3"))
+    return w.state_dict()
+
+
+def heatmap_decoder_state_dict(variables: Dict[str, Any]
+                               ) -> "collections.OrderedDict[str, torch.Tensor]":
+    """HeatmapDecoder variables -> the port's `HeatmapDecoder`. Flax's
+    ``ConvTranspose`` kernel (kh, kw, in, out) correlates the dilated,
+    padded input; ``nn.ConvTranspose2d`` flips its (in, out, kh, kw)
+    weight: the kernel goes across flipped in both spatial axes."""
+    w = _Writer(variables)
+    _fc_blocks(w, ("fc1", "fc2", "fc3"))
+    for i in (1, 2, 3):
+        k = w.get(w.p, f"deconv{i}", "kernel")
+        w.raw(f"deconv{i}.weight", k[::-1, ::-1].transpose(2, 3, 0, 1))
+        w.raw(f"deconv{i}.bias", w.get(w.p, f"deconv{i}", "bias"))
+        w.bn(f"deconv_bn{i}", f"deconv_bn{i}")
     return w.state_dict()
 
 

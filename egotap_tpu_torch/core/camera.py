@@ -1,8 +1,11 @@
-"""Scaramuzza OCam fisheye camera model, numpy only.
+"""Scaramuzza OCam fisheye camera model.
 
-The port's own copy of the numpy branch of `egotap_tpu/core/camera.py`
-(reference utils/projection.py:13-144), which the synthetic dataset
-(`data/synthetic.py`) projects its joints with. The calibration JSON
+The port's own copy of `egotap_tpu/core/camera.py` (reference
+utils/projection.py:13-144): the numpy twins `cam2world_np` /
+`world2cam_np`, which the synthetic dataset (`data/synthetic.py`)
+projects its joints with, `cam2world` / `world2cam` on tensors on any
+device (JAX's jnp path: the pixel radius normalised by the image-circle
+radius before the polynomial, for f32), and `CalibrationCache`. The calibration JSON
 (``fisheye.calibration_{left,right}.json``) carries ``polynomialC2W``
 (pixel radius -> z), ``polynomialW2C`` (theta -> pixel radius),
 ``image_center`` [row, col] (so xc = center[1], yc = center[0]),
@@ -21,9 +24,11 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Dict
+import os
+from typing import Any, Dict, Tuple
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,6 +136,75 @@ def world2cam_np(point3d: np.ndarray, o: OcamModel) -> np.ndarray:
     if o.is_unrealego:
         py = o.yc * 2 - py          # mirror y (utils/projection.py:141-142)
     return np.stack([px, py], axis=-1)
+
+
+def _poly_tensor(coeffs, x: torch.Tensor) -> torch.Tensor:
+    """`_poly_running` on a tensor, in x's dtype."""
+    acc = torch.full_like(x, float(coeffs[0]))
+    x_i = torch.ones_like(x)
+    for c in coeffs[1:]:
+        x_i = x_i * x
+        acc = acc + x_i * float(c)
+    return acc
+
+
+def cam2world(point2d: torch.Tensor, o: OcamModel) -> torch.Tensor:
+    """Pixel (..., 2) -> unit ray (..., 3), a tensor on any device (JAX
+    `cam2world`): the polynomial is evaluated in r / radius, the same
+    function, because powers of a pixel radius lose f32 precision."""
+    invdet = 1.0 / (o.c - o.d * o.e)
+    u = point2d[..., 0] - o.xc
+    v = point2d[..., 1] - o.yc
+    xp_ = invdet * (u - o.d * v)
+    yp_ = invdet * (-o.e * u + o.c * v)
+    r = torch.sqrt(xp_ * xp_ + yp_ * yp_)
+    scale = max(float(o.radius), 1.0)
+    pol = np.asarray(o.pol, dtype=np.float64)
+    zp_ = _poly_tensor(pol * scale ** np.arange(len(pol)), r / scale)
+    invnorm = 1.0 / torch.sqrt(xp_ * xp_ + yp_ * yp_ + zp_ * zp_)
+    return torch.stack([invnorm * xp_, invnorm * yp_, invnorm * zp_], dim=-1)
+
+
+def world2cam(point3d: torch.Tensor, o: OcamModel) -> torch.Tensor:
+    """3D point (..., 3) -> pixel (..., 2), a tensor on any device (JAX
+    `world2cam`)."""
+    if o.is_unrealego:
+        point3d = torch.cat([point3d[..., :1], -point3d[..., 1:]], dim=-1)
+    x3, y3, z3 = point3d[..., 0], point3d[..., 1], point3d[..., 2]
+    norm = torch.sqrt(x3 * x3 + y3 * y3)
+    near_zero = torch.isclose(norm, torch.zeros_like(norm))
+    safe_norm = torch.where(near_zero, torch.ones_like(norm), norm)
+    theta = torch.atan(z3 / safe_norm)
+    rho = _poly_tensor(np.asarray(o.invpol, dtype=np.float64), theta)
+    invnorm = 1.0 / safe_norm
+    xr = x3 * invnorm * rho
+    yr = y3 * invnorm * rho
+    px = torch.where(near_zero, torch.full_like(xr, o.xc),
+                     xr * o.c + yr * o.d + o.xc)
+    py = torch.where(near_zero, torch.full_like(xr, o.yc),
+                     xr * o.e + yr + o.yc)
+    if o.is_unrealego:
+        py = o.yc * 2 - py
+    return torch.stack([px, py], dim=-1)
+
+
+class CalibrationCache:
+    """Calibrations by (data_dir, side). The reference keys a module-global
+    cache by side only (utils/projection.py:15, 52), which serves a stale
+    calibration once two datasets mix in one process."""
+
+    def __init__(self) -> None:
+        self._cache: Dict[Tuple[str, str], OcamModel] = {}
+
+    def get(self, data_dir: str, side: str = "left") -> OcamModel:
+        key = (os.path.abspath(data_dir), side)
+        if key not in self._cache:
+            self._cache[key] = load_calibration(os.path.join(
+                data_dir, f"fisheye.calibration_{side}.json"))
+        return self._cache[key]
+
+    def clear(self) -> None:
+        self._cache.clear()
 
 
 def synthetic_calibration(name: str = "unreal_ego_pose", f: float = 220.0,

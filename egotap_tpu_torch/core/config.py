@@ -8,7 +8,7 @@ take the JAX package's flags and presets and `save` writes the same
 option files. A few fields are kept for the flag surface only and read
 by nothing in the port: ``patched_heatmap_ae`` (the released lifter is
 always built, as in the JAX package), ``init_type``, ``use_slurm``,
-``metadata_dir``, ``project_name``.
+``project_name`` (``metadata_dir`` is read by the preprocessors).
 ``data_parallel`` is the number of ranks (``torchrun`` processes, one a
 card; 0: as many as were launched), `parallel/mesh.py:setup`. The
 device is not a field: the entry points take it as a keyword argument

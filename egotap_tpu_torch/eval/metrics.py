@@ -2,9 +2,10 @@
 
 Counterpart of `egotap_tpu/eval/metrics.py` (reference
 utils/evaluate.py:51-73, metrics per sample, x10 cm -> mm;
-utils/util.py:79-157 for the accumulators). The batch is computed on the
-device in one shot; the accumulators aggregate with exact counts on the
-host, in numpy.
+utils/util.py:79-157 for the accumulators: `RunningAverage`,
+`MetricAccumulator`, the Welford `RunningAverageStd` and
+`ArrayRunningStd`). The batch is computed on the device in one shot; the
+accumulators aggregate with exact counts on the host, in numpy.
 """
 
 from __future__ import annotations
@@ -68,3 +69,58 @@ class MetricAccumulator:
     @property
     def count(self) -> int:
         return next(iter(self._avgs.values())).count if self._avgs else 0
+
+
+class RunningAverageStd:
+    """Welford accumulator over scalars (mean + sample std)."""
+
+    def __init__(self) -> None:
+        self.count = 0
+        self.mean_ = 0.0
+        self.m2 = 0.0
+
+    def update(self, values: np.ndarray) -> None:
+        for v in np.asarray(values, dtype=np.float64).ravel():
+            self.count += 1
+            delta = v - self.mean_
+            self.mean_ += delta / self.count
+            self.m2 += delta * (v - self.mean_)
+
+    @property
+    def mean(self) -> float:
+        return self.mean_
+
+    @property
+    def std(self) -> float:
+        if self.count < 2:
+            raise ValueError("std undefined for < 2 values")
+        return float(np.sqrt(self.m2 / (self.count - 1)))
+
+
+class ArrayRunningStd:
+    """Element-wise Welford over fixed-shape arrays (the reference's
+    RunningAverageStd, utils/util.py:102-130; `preprocess.unrealego`'s
+    dataset-wide mean and std)."""
+
+    def __init__(self) -> None:
+        self.count = 0
+        self.mean = None
+        self.m2 = None
+
+    def update(self, value: np.ndarray) -> None:
+        value = np.asarray(value, dtype=np.float64)
+        if self.mean is None:
+            self.mean = value.copy()
+            self.m2 = np.zeros_like(value)
+            self.count = 1
+            return
+        self.count += 1
+        delta = value - self.mean
+        self.mean += delta / self.count
+        self.m2 += delta * (value - self.mean)
+
+    @property
+    def std(self) -> np.ndarray:
+        if self.count < 2:
+            raise ValueError("std undefined for < 2 values")
+        return np.sqrt(self.m2 / (self.count - 1))

@@ -3,6 +3,8 @@
 Counterpart of `egotap_tpu/models/layers.py` (reference
 model/network_utils.py:91-148):
   * `ConvReLU` — Conv2d + ReLU (the UNet decoder's ``convrelu``),
+  * `ConvBlock` — Conv2d + BatchNorm2d + LeakyReLU(0.2)
+    (``make_conv_layer``, the legacy conv encoder's blocks),
   * `FCBlock`  — Linear + BatchNorm1d + LeakyReLU(0.2) (``make_fc_layer``),
   * `MLPDecoder` — the pose heads (a single Linear in the PU config).
 
@@ -22,8 +24,9 @@ BatchNorm follows the module's ``training`` flag, as torch's does:
 `global_batch_statistics(dp)` the batch statistics of a train-mode
 BatchNorm are those of the global batch over a data-parallel process
 group, as under JAX's mesh, where the batch is one array sharded over
-'data'. int8 modules are inference-only and ignore the flag, as the JAX
-package's int8 twins run only with ``train=False``.
+'data'. The int8 modules follow the JAX package in training mode too: a
+`QConv` quantizes its weights anew at each call and its BatchNorm takes
+batch statistics; an int8 `FCBlock` runs its float product.
 """
 
 from __future__ import annotations
@@ -74,7 +77,7 @@ def conv_nhwc(x: torch.Tensor, mod: nn.Conv2d) -> torch.Tensor:
     so cuDNN runs its NHWC kernels and no layout copy is made."""
     b = None if mod.bias is None else mod.bias.to(x.dtype)
     y = F.conv2d(x.permute(0, 3, 1, 2), mod.weight.to(x.dtype), b,
-                 mod.stride, mod.padding)
+                 mod.stride, mod.padding, groups=mod.groups)
     return y.permute(0, 2, 3, 1)
 
 
@@ -150,13 +153,17 @@ def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
 
 class ConvReLU(nn.Sequential):
     """Conv2d + ReLU; keys ``0.weight`` / ``0.bias`` like the reference's
-    ``nn.Sequential(nn.Conv2d, nn.ReLU)``."""
+    ``nn.Sequential(nn.Conv2d, nn.ReLU)``. ``groups`` > 1: a grouped conv
+    (the fused nets of `heatmap_net.FusedHeatmapUNet`; float only)."""
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
-                 padding: int = 1, quant: bool = False):
-        conv = QConv if quant else nn.Conv2d
-        super().__init__(conv(in_channels, features, kernel_size,
-                              padding=padding), nn.ReLU())
+                 padding: int = 1, quant: bool = False, groups: int = 1):
+        if quant and groups > 1:
+            raise NotImplementedError("int8 grouped convs: no model has one")
+        conv = (QConv(in_channels, features, kernel_size, padding=padding)
+                if quant else nn.Conv2d(in_channels, features, kernel_size,
+                                        padding=padding, groups=groups))
+        super().__init__(conv, nn.ReLU())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if isinstance(self[0], QConv):
@@ -174,10 +181,31 @@ class FCBlock(nn.Module):
         self.bn = nn.BatchNorm1d(features, eps=BN_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if isinstance(self.fc, QDense):
+        if isinstance(self.fc, QDense) and not self.training:
             return leaky_relu(batch_norm_eval(self.fc(x), self.bn))
+        # training: the float product, as JAX's FCBlock takes nn.Dense
+        # under ``train=True`` whatever ``quant`` says
         return leaky_relu(batch_norm(linear(x, self.fc), self.bn,
                                      self.training))
+
+
+class ConvBlock(nn.Module):
+    """Conv2d + BatchNorm2d + LeakyReLU(0.2) on NHWC (the reference's
+    ``make_conv_layer``, `egotap_tpu/models/layers.py:ConvBlock`); keys
+    ``conv`` and ``bn``."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int = 4,
+                 stride: int = 2, padding: int = 1, with_bn: bool = True):
+        super().__init__()
+        self.conv = nn.Conv2d(in_channels, features, kernel_size, stride,
+                              padding)
+        self.bn = nn.BatchNorm2d(features, eps=BN_EPS) if with_bn else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = conv_nhwc(x, self.conv)
+        if self.bn is not None:
+            x = batch_norm(x, self.bn, self.training)
+        return leaky_relu(x)
 
 
 class MLPDecoder(nn.Module):

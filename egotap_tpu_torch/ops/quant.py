@@ -25,7 +25,9 @@ not the IEEE quotient that JAX computes.
 Modules (same gating as the JAX `QConv` / `QDense` / `QuantStub`):
   * `QConv` — nn.Conv2d on NHWC: in_ch < 64 is never quantized; 64 <=
     in_ch < 128 is quantized only with a static ``a_scale`` (else a float
-    conv in the compute dtype); in_ch >= 128 always.
+    conv in the compute dtype); in_ch >= 128 always. In training mode its
+    weights are quantized anew at every call (JAX's `QConv` under
+    ``train=True``, which rounds inline).
   * `QDense` — nn.Linear, always quantized; ``pre_q`` shares one
     quantized input between several consumers (and records no amax).
   * `QuantStub` — quantizes one activation once for several `QDense`.
@@ -221,9 +223,15 @@ class QConv(WeightCache, Calibrated, nn.Conv2d):
             out = conv_nhwc_float(x, self.weight.to(x.dtype), self.stride[0],
                                   self.padding[0])
             return out if self.bias is None else out + self.bias.to(out.dtype)
-        if self.w_q is None:
-            self.prequantize()
-        return quantized_conv(x, self.w_q, self.w_scale, self.stride[0],
+        if self.training:
+            # a training step changes the weights: quantize them anew, as
+            # the JAX QConv does without qparams (no cache to go stale)
+            w_q, w_scale = quantize_weights(self.weight)
+        else:
+            if self.w_q is None:
+                self.prequantize()
+            w_q, w_scale = self.w_q, self.w_scale
+        return quantized_conv(x, w_q, w_scale, self.stride[0],
                               self.padding[0], self.bias, a_scale)
 
 

@@ -31,6 +31,7 @@ Runs on the card unless ``device="cpu"`` is passed; with no card and no
 from __future__ import annotations
 
 import copy
+import dataclasses
 import os
 import warnings
 from typing import Dict, Optional, Sequence
@@ -154,14 +155,19 @@ class Predictor:
                  rot_heatmap_state: Optional[StateDict] = None,
                  lifter_state: Optional[StateDict] = None,
                  bf16: bool = True, int8: Optional[bool] = None,
-                 device="cuda", seed: int = 0):
-        """cfg defaults to `serving_config()`. Each ``*_state`` is a
-        reference-layout state_dict (strict-loaded); one left None gets
-        seeded random weights (`init_weights` with ``seed``). int8:
-        int8 inference convs and matmuls (`ops/quant.py`); None follows
-        ``cfg.int8_heatmap_inference`` / ``cfg.int8_lifter_inference``."""
+                 device="cuda", seed: int = 0,
+                 model_name: Optional[str] = None):
+        """cfg defaults to `serving_config()`; ``model_name`` (resnet18,
+        resnet34, resnet50, resnet101) replaces its backbone. Each
+        ``*_state`` is a reference-layout state_dict (strict-loaded); one
+        left None gets seeded random weights (`init_weights` with
+        ``seed``). int8: int8 inference convs and matmuls
+        (`ops/quant.py`); None follows ``cfg.int8_heatmap_inference`` /
+        ``cfg.int8_lifter_inference``."""
         self.device = resolve_device(device)
         cfg = cfg or serving_config()
+        if model_name is not None:
+            cfg = dataclasses.replace(cfg, model_name=model_name)
         self.cfg = cfg
         self.bf16 = bf16
         self.dtype = torch.bfloat16 if bf16 else torch.float32

@@ -7,14 +7,17 @@ Counterpart of `egotap_tpu/train/losses.py`:
   * `mpjpe`: mean per-joint L2 (reference utils/loss.py:79-85);
   * `per_sample_mpjpe`: the same per sample;
   * `cos_sim`: summed bone-direction cosine similarity, trained with a
-    negative lambda (reference utils/loss.py:44-77).
+    negative lambda (reference utils/loss.py:44-77);
+  * `bone_length_loss` and `l1_regularizer`: defined by the reference
+    (utils/loss.py:15-42) and used by no shipped config.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import torch
+from torch import nn
 
 COS_EPS = 1e-8  # torch.nn.CosineSimilarity default
 
@@ -65,3 +68,24 @@ def cos_sim(pred: torch.Tensor, gt: torch.Tensor, parents: Sequence[int],
     if not estimate_head:
         cos = cos[..., 1:]
     return cos.sum(dim=-1).mean()
+
+
+def bone_length_loss(pred: torch.Tensor, gt: torch.Tensor,
+                     parents: Sequence[int]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cos, length) limb loss pair (reference utils/loss.py:21-42): the
+    batch mean of the summed bone cosines, and of the summed squared
+    bone-length differences."""
+    bp = _bone_vectors(pred, parents)
+    bg = _bone_vectors(gt, parents)
+    np_ = torch.linalg.vector_norm(bp, dim=-1).clamp_min(COS_EPS)
+    ng_ = torch.linalg.vector_norm(bg, dim=-1).clamp_min(COS_EPS)
+    cos = ((bp * bg).sum(dim=-1) / (np_ * ng_)).sum(dim=-1).mean()
+    length = ((np_ - ng_) ** 2).sum(dim=-1).mean()
+    return cos, length
+
+
+def l1_regularizer(module: nn.Module) -> torch.Tensor:
+    """Sum of absolute values over a module's parameters (reference
+    utils/loss.py:15-19)."""
+    return sum(p.abs().sum() for p in module.parameters())

@@ -122,7 +122,9 @@ def test_encoder_quant_matches_jax(fused):
                       train=False)
 
     trunk = heatmap_net_from_jax(v, device="cpu").backbone.backbone.backbone
-    enc = ResNetEncoder("resnet18", quant=True, fused_layer1=fused)
+    # eval mode, as JAX's train=False (in training mode the int8 encoder
+    # now runs unfolded blocks on batch statistics, as JAX's does)
+    enc = ResNetEncoder("resnet18", quant=True, fused_layer1=fused).eval()
     enc.load_state_dict(trunk.state_dict())
     prefix = "backbone.backbone.backbone."
     scales = jax_scales({"backbone": qparams})

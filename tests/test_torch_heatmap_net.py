@@ -56,5 +56,19 @@ def test_encoder_pyramid_shapes():
 
 
 def test_bottleneck_nets_are_not_ported():
-    with pytest.raises(NotImplementedError):
-        ResNetEncoder("resnet50")
+    """Bottleneck nets, refused before they were ported, now build and
+    match the JAX encoder (the name is kept from then; the full cases are
+    in tests/test_torch_resnet_variants.py)."""
+    from egotap_tpu.models.resnet import ResNetEncoder as JaxEncoder
+    from egotap_tpu_torch.compat.from_jax import resnet_state_dict
+    from tests.test_torch_resnet_variants import (EVAL_TOL, _image, _rel,
+                                                  jax_variables)
+    x = _image(0, 1, 32, 32, 3)
+    model = JaxEncoder("resnet50")
+    v = jax_variables(model, (1, 32, 32, 3))
+    enc = ResNetEncoder("resnet50").eval()
+    enc.load_state_dict(resnet_state_dict(v, "resnet50"), strict=True)
+    with torch.no_grad():
+        got = enc(torch.from_numpy(x))
+    for g, r in zip(got, model.apply(v, jnp.asarray(x), train=False)):
+        assert _rel(g, r) <= EVAL_TOL["float32"]

@@ -1,5 +1,7 @@
 """The port stands alone: egotap_tpu_torch and chip_smoke.py import no
-jax, no flax and nothing of egotap_tpu, and the port's entry points run
+jax, no flax and nothing of egotap_tpu, every module imports without
+OpenCV, PIL and h5py (the H100 machine has none of them; the offline
+code imports them where it uses them), and the port's entry points run
 on the card unless the caller asks for the CPU."""
 
 import os
@@ -14,8 +16,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = textwrap.dedent("""
     import importlib, pkgutil, sys
-    sys.modules["jax"] = None          # any import of these now fails
-    sys.modules["flax"] = None
+    for blocked in ("jax", "flax", "cv2", "PIL", "h5py"):
+        sys.modules[blocked] = None     # any import of these now fails
     import egotap_tpu_torch
     names = [m.name for m in pkgutil.walk_packages(
         egotap_tpu_torch.__path__, "egotap_tpu_torch.")]
@@ -26,18 +28,27 @@ _PROBE = textwrap.dedent("""
                  if m == "egotap_tpu" or m.startswith("egotap_tpu.")
                  or (m.split(".")[0] in ("jax", "flax", "jaxlib")
                      and sys.modules[m] is not None))
-    print(len(names), bad)
+    print(len(names), bad, sorted(n for n in names if n in NEW))
 """)
+
+# the modules of the last slice, each of which must be among those imported
+NEW = ("egotap_tpu_torch.core.rotations", "egotap_tpu_torch.data.heatmaps",
+       "egotap_tpu_torch.data.integrity", "egotap_tpu_torch.preprocess.egocap",
+       "egotap_tpu_torch.preprocess.unrealego",
+       "egotap_tpu_torch.train.search", "egotap_tpu_torch.utils.images",
+       "egotap_tpu_torch.models.encoders", "egotap_tpu_torch.models.resnet")
 
 
 def test_port_imports_no_jax_and_nothing_of_egotap_tpu():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+    probe = f"NEW = {NEW!r}\n" + _PROBE
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 51            # every module of the port imported
+    count, bad, new = out.stdout.strip().split(" ", 2)
+    assert int(count) >= 58            # every module of the port imported
     assert bad == "[]"
+    assert new == repr(sorted(NEW))
 
 
 @pytest.mark.parametrize("int8", [False, True])
@@ -138,3 +149,21 @@ def test_cli_and_evaluate_default_to_cuda(entry, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
     assert not os.path.exists(tmp_path / "log")
+
+
+@pytest.mark.parametrize("model_name", ["resnet50", "resnet101"])
+def test_bottleneck_entry_points_default_to_cuda(model_name):
+    """The Bottleneck nets' entry points: `Predictor(model_name=...)` and
+    the stage-1 task raise with no card; the task builds on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from egotap_tpu_torch.core.config import Config
+    from egotap_tpu_torch.serving import Predictor
+    from egotap_tpu_torch.train.tasks import HeatmapTask
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Predictor(model_name=model_name)
+    cfg = Config.from_args(["--preset", "unrealego_heatmap_joint",
+                            "--model_name", model_name])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        HeatmapTask(cfg)
+    assert HeatmapTask(cfg, device="cpu").cfg.model_name == model_name

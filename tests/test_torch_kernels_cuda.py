@@ -161,6 +161,18 @@ def test_upsample_edge_shapes(gen, shape, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_upsample_resnet50_width(gen, dtype):
+    """The largest call of a resnet50/101 decoder (fs = 8: conv_up2's 2048
+    channels at 32 x 32, batch 32), one launch."""
+    dt = getattr(torch, dtype)
+    x = torch.randn(32, 32, 32, 2048, generator=gen, device="cuda").to(dt)
+    before = up.upsample2x_align_corners.launches
+    got = up.upsample2x_align_corners(x)
+    assert up.upsample2x_align_corners.launches == before + 1
+    _close(got, up.upsample2x_plain(x), up.TOL[dt])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(16, 8, 8, 1024), (16, 16, 16, 1024),
                                    (16, 32, 32, 512)])
 def test_upsample_grad_matches_plain(gen, shape, dtype):
