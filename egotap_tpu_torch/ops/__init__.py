@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from egotap_tpu_torch.utils import profiling
+
 
 def refuse_grad(what: str, *tensors: torch.Tensor) -> None:
     """Raise when grad mode is on and any of ``tensors`` requires grad:
@@ -35,12 +37,13 @@ def plain_vjp(plain, saved, need, grad, label):
     with the output gradient ``grad``: ``plain`` is recomputed under
     autograd from detached copies. One gradient per saved tensor, None
     where ``need`` (``ctx.needs_input_grad``) is false: the backward of
-    a kernel whose plain version is ``plain``. The work runs in a
-    profiler range named ``label``."""
+    a kernel whose plain version is ``plain``. The work runs in a span
+    named ``label`` (`utils.profiling.span`; in a profiler's trace, a
+    range of exactly that name)."""
     need = list(need[:len(saved)])
     if not any(need):
         return (None,) * len(saved)
-    with torch.profiler.record_function(label), torch.enable_grad():
+    with profiling.span(label, prefix=""), torch.enable_grad():
         leaves = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
         out = plain(*leaves)
         grads = torch.autograd.grad(

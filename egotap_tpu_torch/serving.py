@@ -51,6 +51,7 @@ from egotap_tpu_torch.ops.quant import (Calibrated, install_scales,
                                         prequantize, set_calibrating)
 from egotap_tpu_torch.parallel.tp import shard_lifter
 from egotap_tpu_torch.train.state import read_checkpoint
+from egotap_tpu_torch.utils import profiling
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -136,8 +137,9 @@ def heatmap_stack(pos_net: nn.Module, rot_net: nn.Module, rgb: torch.Tensor,
                   dtype: torch.dtype) -> torch.Tensor:
     """Both stage-1 nets on rgb cast to ``dtype``, concatenated (the
     stack the lifter reads, in ``dtype``)."""
-    x = rgb.to(dtype)
-    return torch.cat([pos_net(x), rot_net(x)], dim=-1)
+    with profiling.span("stage1"):
+        x = rgb.to(dtype)
+        return torch.cat([pos_net(x), rot_net(x)], dim=-1)
 
 
 def pose_forward(nets, rgb: torch.Tensor, dtype: torch.dtype
@@ -146,7 +148,9 @@ def pose_forward(nets, rgb: torch.Tensor, dtype: torch.dtype
     ``dtype``: (B, V, H, W, 3) rgb -> (B, J, 3) f32 pose. Shared by
     `Predictor` and `train.tasks.LifterTask.eval_step`."""
     pos_net, rot_net, lifter = nets
-    return lifter(heatmap_stack(pos_net, rot_net, rgb, dtype)).float()
+    hm = heatmap_stack(pos_net, rot_net, rgb, dtype)
+    with profiling.span("stage2"):
+        return lifter(hm).float()
 
 
 class Predictor:
@@ -175,25 +179,27 @@ class Predictor:
         int8_lift = cfg.int8_lifter_inference if int8 is None else int8
         if self.device.type == "cuda":
             set_f32_numerics()
-        self.pos_net, self.rot_net, self.lifter = build_nets(
-            cfg, int8_hm, int8_lift)
-        gen = torch.Generator().manual_seed(seed)
-        for net, state in ((self.pos_net, heatmap_state),
-                           (self.rot_net, rot_heatmap_state),
-                           (self.lifter, lifter_state)):
-            if state is None:
-                init_weights(net, gen)
-            else:
-                net.load_state_dict(state, strict=True)
-            net.eval().to(self.device)
-            cast_matmul_weights(net, self.dtype)
-        self.int8 = (int8_hm, int8_lift)
-        self.nets = (self.pos_net, self.rot_net, self.lifter)
-        # pre-quantized int8 weights, off the hot path
-        prequantize(self.nets)
+        with profiling.span("setup.model", always=True):
+            self.pos_net, self.rot_net, self.lifter = build_nets(
+                cfg, int8_hm, int8_lift)
+            gen = torch.Generator().manual_seed(seed)
+            for net, state in ((self.pos_net, heatmap_state),
+                               (self.rot_net, rot_heatmap_state),
+                               (self.lifter, lifter_state)):
+                if state is None:
+                    init_weights(net, gen)
+                else:
+                    net.load_state_dict(state, strict=True)
+                net.eval().to(self.device)
+                cast_matmul_weights(net, self.dtype)
+            self.int8 = (int8_hm, int8_lift)
+            self.nets = (self.pos_net, self.rot_net, self.lifter)
+            # pre-quantized int8 weights, off the hot path
+            prequantize(self.nets)
         self._layout = None         # `shard`'s (num_model, devices)
         self._replicas = None       # (device, nets) of each data shard
         self._warned_dynamic_pad = False
+        self._requests = 0          # `__call__`'s count, a request's number
 
     @torch.no_grad()
     def calibrate(self, rgb_batches) -> "Predictor":
@@ -245,8 +251,18 @@ class Predictor:
         int8 scales after `calibrate`); under dynamic int8 scales they
         shift the per-call scales, and a warning says so once."""
         x = torch.as_tensor(rgb)
-        if self._replicas is None:
-            return self._forward(x.to(self.device)).cpu().numpy()
+        self._requests += 1
+        with profiling.span("serve.request", root=self._requests):
+            if self._replicas is None:
+                with profiling.span("serve.h2d"):
+                    x = x.to(self.device)
+                out = self._forward(x)
+                with profiling.span("serve.d2h"):
+                    return out.cpu().numpy()
+            return self._sharded(x, pad_ragged)
+
+    def _sharded(self, x: torch.Tensor, pad_ragged: bool) -> np.ndarray:
+        """`__call__` over the data shards of `shard`."""
         n_valid, n = x.shape[0], len(self._replicas)
         rem = n_valid % n
         if rem and not pad_ragged:
@@ -260,14 +276,17 @@ class Predictor:
                     "padding a ragged batch with dynamic int8 activation "
                     "scales perturbs real-row outputs; call calibrate() "
                     "for padding-invariant numerics or pass "
-                    "pad_ragged=False", stacklevel=2)
+                    "pad_ragged=False", stacklevel=3)
                 self._warned_dynamic_pad = True
             x = torch.cat([x, x.new_zeros((n - rem,) + x.shape[1:])])
+        outs = []
         with torch.no_grad():
-            outs = [pose_forward(nets, chunk.to(dev), self.dtype)
-                    for (dev, nets), chunk in zip(self._replicas,
-                                                  x.chunk(n))]
-        return torch.cat([o.cpu() for o in outs])[:n_valid].numpy()
+            for (dev, nets), chunk in zip(self._replicas, x.chunk(n)):
+                with profiling.span("serve.h2d"):
+                    chunk = chunk.to(dev)
+                outs.append(pose_forward(nets, chunk, self.dtype))
+        with profiling.span("serve.d2h"):
+            return torch.cat([o.cpu() for o in outs])[:n_valid].numpy()
 
     def shard(self, num_devices: int = 0, num_model: int = 1,
               devices: Optional[Sequence] = None) -> "Predictor":

@@ -52,7 +52,7 @@ from egotap_tpu_torch.parallel import mesh
 from egotap_tpu_torch.train import state as state_lib
 from egotap_tpu_torch.train.tasks import create_task, load_heatmap_state
 from egotap_tpu_torch.utils.logging import MetricWriter
-from egotap_tpu_torch.utils.profiling import step_annotation, trace
+from egotap_tpu_torch.utils.profiling import trace
 
 StateDict = Dict[str, object]
 
@@ -221,9 +221,8 @@ def train_main(cfg: Config, epoch_callback=None, device="cuda") -> bool:
                 if cfg.profile_dir and epoch == cfg.epoch_count and i == 2:
                     tracing.enter_context(trace(cfg.profile_dir))
                 step = (epoch - 1) * iters_per_epoch + i
-                with step_annotation("train", step):
-                    state, losses = task.train_step(
-                        state, pre(to_device(batch, dev)))
+                state, losses = task.train_step(
+                    state, pre(to_device(batch, dev)))
                 if i >= 2 + cfg.profile_steps:
                     tracing.close()
                 pending.append((i, step, total_itr + i, losses))

@@ -47,6 +47,7 @@ from egotap_tpu_torch.serving import (Predictor, build_nets, init_weights,
 from egotap_tpu_torch.train import losses as L
 from egotap_tpu_torch.train.optim import make_optimizer
 from egotap_tpu_torch.train.state import TrainState, read_checkpoint
+from egotap_tpu_torch.utils import profiling
 
 Batch = Dict[str, torch.Tensor]
 StateDict = Dict[str, torch.Tensor]
@@ -70,11 +71,13 @@ def net_gradients(net: nn.Module,
     net.train()
     try:
         with torch.enable_grad():
-            loss_d = losses()
+            with profiling.span("train.net_forward"):
+                loss_d = losses()
             params = dict(net.named_parameters())
-            grads = torch.autograd.grad(sum(loss_d.values()),
-                                        list(params.values()),
-                                        allow_unused=True)
+            with profiling.span("train.backward"):
+                grads = torch.autograd.grad(sum(loss_d.values()),
+                                            list(params.values()),
+                                            allow_unused=True)
     finally:
         net.eval()
     return ({k: v.detach() for k, v in loss_d.items()},
@@ -122,9 +125,11 @@ class _Task:
         and the gradients and losses are averaged over the ranks before
         the optimizer, so that the step is the single-process step at
         the global batch and every rank holds the same losses."""
-        loss_d, grads = self.step_gradients(state, batch)
-        state.opt.step(dict(state.net.named_parameters()), grads)
-        state.step += 1
+        with profiling.span("train.step", root=state.step):
+            loss_d, grads = self.step_gradients(state, batch)
+            with profiling.span("train.optimizer"):
+                state.opt.step(dict(state.net.named_parameters()), grads)
+            state.step += 1
         return state, loss_d
 
 
@@ -175,21 +180,23 @@ class HeatmapTask(_Task):
         The optimizer is stage-1 Adam (eps 1e-8) whatever
         ``optimizer_type`` says, as the reference builds it
         (heatmap_shared_model.py:70-74)."""
-        cfg = self.cfg
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(seed)
-            net = HeatmapUNet(self.nh + self.nr * self.ld, cfg.model_name,
-                              self.views)
-        skip = ("backbone",) if cfg.init_ImageNet else ()
-        apply_reference_init(net, torch.Generator().manual_seed(seed), skip)
-        if cfg.init_ImageNet and cfg.imagenet_backbone:
-            load_imagenet_backbone(net, cfg.imagenet_backbone)
-        if cfg.path_to_trained_heatmap:
-            net.load_state_dict(load_heatmap_state(
-                cfg, cfg.path_to_trained_heatmap), strict=True)
-        return TrainState.create(
-            net, {}, make_optimizer(cfg, iters_per_epoch, stage1=True),
-            self.device)
+        with profiling.span("setup.model", always=True):
+            cfg = self.cfg
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(seed)
+                net = HeatmapUNet(self.nh + self.nr * self.ld, cfg.model_name,
+                                  self.views)
+            skip = ("backbone",) if cfg.init_ImageNet else ()
+            apply_reference_init(net, torch.Generator().manual_seed(seed),
+                                 skip)
+            if cfg.init_ImageNet and cfg.imagenet_backbone:
+                load_imagenet_backbone(net, cfg.imagenet_backbone)
+            if cfg.path_to_trained_heatmap:
+                net.load_state_dict(load_heatmap_state(
+                    cfg, cfg.path_to_trained_heatmap), strict=True)
+            return TrainState.create(
+                net, {}, make_optimizer(cfg, iters_per_epoch, stage1=True),
+                self.device)
 
     def _split(self, out: torch.Tensor
                ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
@@ -270,21 +277,22 @@ class LifterTask(_Task):
         (`serving.init_weights`); the lifter is drawn as the reference
         draws it: HF randn position embeddings, then kaiming everywhere
         (`apply_reference_init`)."""
-        gen = torch.Generator().manual_seed(seed)
-        pos_net, rot_net, lifter = build_nets(self.cfg)
-        for net, state in ((pos_net, heatmap_state),
-                           (rot_net, rot_heatmap_state)):
-            if state is None:
-                init_weights(net, gen)
-            else:
-                net.load_state_dict(state, strict=True)
-        with torch.no_grad():
-            lifter.pos_heatmap_encoder.vit.embeddings.position_embeddings \
-                .normal_(generator=gen)
-        apply_reference_init(lifter, gen)
-        return TrainState.create(
-            lifter, {"heatmap": pos_net, "rot_heatmap": rot_net},
-            make_optimizer(self.cfg, iters_per_epoch), self.device)
+        with profiling.span("setup.model", always=True):
+            gen = torch.Generator().manual_seed(seed)
+            pos_net, rot_net, lifter = build_nets(self.cfg)
+            for net, state in ((pos_net, heatmap_state),
+                               (rot_net, rot_heatmap_state)):
+                if state is None:
+                    init_weights(net, gen)
+                else:
+                    net.load_state_dict(state, strict=True)
+            with torch.no_grad():
+                lifter.pos_heatmap_encoder.vit.embeddings.position_embeddings \
+                    .normal_(generator=gen)
+            apply_reference_init(lifter, gen)
+            return TrainState.create(
+                lifter, {"heatmap": pos_net, "rot_heatmap": rot_net},
+                make_optimizer(self.cfg, iters_per_epoch), self.device)
 
     def _gt_heatmaps(self, batch: Batch) -> torch.Tensor:
         views = ("left", "right")[: self.cfg.views]
@@ -327,7 +335,8 @@ class LifterTask(_Task):
         does not use). BatchNorm running statistics (the lifter's and the
         frozen nets') update as in training; parameters do not."""
         batch = self._batch(batch)
-        hm_cat = self._forward_heatmaps(state.frozen, batch)
+        with profiling.span("train.frozen_forward"):
+            hm_cat = self._forward_heatmaps(state.frozen, batch)
         return net_gradients(state.net, lambda: self._pose_losses(
             state.net(hm_cat.to(self.dtype)).float(), batch))
 

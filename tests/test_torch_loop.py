@@ -225,16 +225,23 @@ def test_data_parallel_is_refused(root, tmp_path):
 
 
 def test_profile_trace_and_summary_rotation(root8, tmp_path):
-    """``profile_dir`` writes a Chrome trace holding the traced steps'
-    ranges; a second run over a finished one rotates its summary and
-    test result to ``_0``."""
+    """``profile_dir`` writes a Chrome trace holding the traced step's
+    ``egotap.train.step`` range, its step number as the range's argument
+    ``root``, and its phases; a second run over a finished one rotates its
+    summary and test result to ``_0``."""
     prof = str(tmp_path / "prof")
     kw = dict(batch_size=2, niter=1, niter_decay=0, experiment_name="prof",
               val_epoch_freq=10 ** 6, **QUIET)
     cfg = _cfg(root8, tmp_path, profile_dir=prof, profile_steps=0, **kw)
     assert loop.train_main(cfg, device="cpu")
-    trace = open(os.path.join(prof, TRACE_FILE)).read()
-    assert "train_step_2" in trace and "train_step_1" not in trace
+    with open(os.path.join(prof, TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = [e for e in events if e.get("cat") == "user_annotation"]
+    steps = [e for e in ranges if e["name"] == "egotap.train.step"]
+    assert [e["args"]["root"] for e in steps] == [2]
+    assert {"egotap.train.net_forward", "egotap.train.backward",
+            "egotap.train.optimizer"} <= {
+        e["name"] for e in ranges if e["args"].get("root") == 2}
     assert loop.train_main(_cfg(root8, tmp_path, **kw), device="cpu")
     for name in ("summary_0", "test_result_0.txt", "summary",
                  "test_result.txt"):
