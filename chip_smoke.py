@@ -52,11 +52,14 @@ Exits non-zero, printing no result, when there is no card. Phases:
    moved (the ViT's query weights and the PU chain's top cell, reachable
    only through the backward of B and C), the frozen nets' parameters
    unchanged bit for bit and their running statistics moved, launches
-   per step A 6, B 3, C 1, D 0; the backward recompute of B and C timed
-   by events and inside one profiled step. Then one f32 step of batch 2
-   on the card against the same step on the CPU (losses, and the
-   lifter's flattened gradient by relative L2), and the same check
-   rejecting a faulty control (B's output detached from the graph).
+   per step A 6, B 3, C 1, D 0 and C's backward 1; B's backward
+   recompute and C's backward kernel timed (C's also by the host clock,
+   its reverse walk on the device, beside its bound, latency floor and
+   the plain recompute it replaced) and inside one profiled step. Then
+   one f32 step of batch 2 on the card against the same step on the CPU
+   (losses, and the lifter's flattened gradient by relative L2), and the
+   same check rejecting a faulty control (B's output detached from the
+   graph).
 6. The eval step of the serving configuration (bf16, int8 heatmap nets
    and lifter calibrated by `prepare_inference` on 2 batches of rgb + 0.1
    noise, batch 32): launches as a forward, its pose equal bit for bit
@@ -182,7 +185,8 @@ Exits non-zero, printing no result, when there is no card. Phases:
    Each part's wall time.
 12. One JSON line with every kernel's numbers (with each bf16 kernel's
    launches per training and eval step, A's per stage-1 step, the
-   backward recompute time a launch of A (stage 1), B and C, the
+   backward recompute time a launch of A (stage 1) and B, C's backward
+   kernel's times, bound and launches a training step, the
    launches of A, B and C in each CLI run of phase 8, each bf16
    kernel's launches per LSTM training step and in the LSTM CLI runs of
    phase 9, and each kernel's launches in phase 10's data-parallel step
@@ -725,7 +729,8 @@ def read_head_counts():
 
 # launches per Predictor forward, in every precision
 PER_FORWARD = {"upsample": 6, "attention": 3, "pu_chain": 1,
-               "attention_unpacked": 0, "fused_layer1": 0}
+               "attention_unpacked": 0, "fused_layer1": 0,
+               "pu_chain_backward": 0}
 
 
 def serve(torch, pred, rgb_dev, label, card, requests=3,
@@ -970,10 +975,11 @@ TRAIN_ITERS_PER_EPOCH = 1000
 TRAIN_STEPS = 12                   # the last TIMED_STEPS are timed
 TIMED_STEPS = 10
 # launches per training step: the frozen nets' decoders (A, 3 a net, no
-# gradient), the Grid-ViT's 3 blocks (B) and the PU chain (C), forward
-# only; the backward of B and C recomputes their plain versions
+# gradient), the Grid-ViT's 3 blocks (B) and the PU chain (C) forward;
+# B's backward recomputes its plain version, C's is its reverse walk
 PER_TRAIN_STEP = {"upsample": 6, "attention": 3, "pu_chain": 1,
-                  "attention_unpacked": 0, "fused_layer1": 0}
+                  "attention_unpacked": 0, "fused_layer1": 0,
+                  "pu_chain_backward": 1}
 # f32 step on the card vs on the CPU from the same weights and batch:
 # losses within TRAIN_LOSS_RTOL (cos_sim, a sum of 15 bone cosines that
 # cancels to near 0 at random weights, against its largest value), and
@@ -1004,10 +1010,63 @@ def loss_gap(name, got, want):
     return abs(got - want) / scale
 
 
+PU_LEAVES = ("fh", "gates_pre", "h2h0.kernel", "x2f.kernel", "x2f.bias",
+             "x2h.kernel", "x2h.bias", "h2h.kernel", "h2h.bias")
+
+
+def pu_grad_checks(torch, dt, saved, ct, got, want):
+    """C's backward on the card (``got``, a gradient a leaf of ``saved``)
+    against the plain recompute (``want``, `ops.plain_vjp` over
+    `pu_chain_plain`): each leaf within `pu_kernel.GRAD_TOL`; then the
+    reverse walk with layer 1's recurrent term dropped, and in bf16 with
+    x's gradient left unrounded (`tests/pu_chain_schedule.py`), read
+    through the same comparison, must fall outside it in some leaf.
+    Raises when either fails."""
+    import importlib.util
+    import os
+    from egotap_tpu_torch.ops import kernel_errors, pu_kernel
+    # by its path: a `tests` package installed elsewhere can shadow the
+    # repository's directory of that name
+    spec = importlib.util.spec_from_file_location("pu_chain_schedule", (
+        os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                     "pu_chain_schedule.py")))
+    schedule = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(schedule)
+    tol = pu_kernel.GRAD_TOL[dt]
+    failures = []
+    for name, g, w in zip(PU_LEAVES, got, want):
+        check(f"C's backward {dt} d{name}", g, w, tol, failures)
+    faults = ["no_recurrent"] + (["unrounded"] if dt == torch.bfloat16
+                                 else [])
+    for fault in faults:
+        dfh, dgp, dw0, d1 = schedule.schedule_vjp(*saved[:3],
+                                         pu_kernel._nested(saved[3:]), ct,
+                                         **{fault: True})
+        bad = [dfh, dgp, dw0] + [d1[n][leaf] for n, leaf in pu_kernel._CELL1]
+        reads = {name: kernel_errors(g, w)[1:]
+                 for name, g, w in zip(PU_LEAVES, bad, want)}
+        name, (max_rel, rms_rel) = max(reads.items(), key=lambda kv: max(
+            kv[1][0] / tol[0], kv[1][1] / tol[1]))
+        caught = max_rel > tol[0] or rms_rel > tol[1]
+        print(f"    control, {fault}: worst d{name} max_rel_err="
+              f"{max_rel:.3e} rms_rel_err={rms_rel:.3e} -> "
+              f"{'rejected' if caught else 'NOT rejected  FAIL'}")
+        if not caught:
+            failures.append(f"control {fault}")
+    if failures:
+        raise AssertionError(f"{dt} C's backward: {failures}")
+
+
 def recompute_ms(torch, card):
-    """CUDA-event times of the backward recompute of kernels B and C at
-    the training step's shapes (`ops.plain_vjp` over the plain version),
-    per launch, in bf16 and f32."""
+    """Per launch, in bf16 and f32 at the training step's shapes: kernel
+    B's backward recompute (`ops.plain_vjp` over the plain version) by
+    CUDA events; kernel C's backward (its reverse-walk kernel and the
+    weight products), its gradients first held to the plain recompute it
+    replaced (`pu_grad_checks`), then timed by the host clock around the
+    call and by CUDA events, beside the whole backward's bound, and its
+    reverse walk's launch alone on the device (`device_ms`) beside the
+    walk's own bound and its latency floor (the walk's J + 1 barriers);
+    and the plain recompute (`plain_vjp` over `pu_chain_plain`)."""
     from egotap_tpu_torch.ops import attention, plain_vjp, pu_kernel
     g = torch.Generator(device="cuda").manual_seed(21)
     out = {}
@@ -1029,20 +1088,79 @@ def recompute_ms(torch, card):
                  u(4 * H, H).to(dt).t(), u(4 * H), u(4 * H, H).to(dt).t(),
                  u(4 * H))
         ct = torch.randn(b, J, H, generator=g, device="cuda")
-        out[("pu_chain", dt)] = time_ms(torch, lambda: plain_vjp(
-            pu_kernel._plain_flat, saved, (True,) * 9, ct,
-            pu_kernel.BACKWARD_LABEL), iters=5)
-        b_ms, c_ms = out[("attention", dt)], out[("pu_chain", dt)]
-        print(f"  backward recompute {dt}: kernel B {b_ms:.3f} ms a launch, "
-              f"kernel C {c_ms:.3f} ms a launch [{card}]")
+
+        def chain(fh, gp, w0, *cell1):
+            return pu_kernel.pu_chain_plain(fh, gp, w0,
+                                            pu_kernel._nested(cell1))
+
+        def recompute():
+            return plain_vjp(chain, saved, (True,) * 9, ct, "plain recompute")
+        plain = time_ms(torch, recompute, iters=5)
+        leaves = [t.detach().requires_grad_(True) for t in saved]
+        with torch.enable_grad():            # the smoke runs under no_grad
+            y = pu_kernel.pu_chain_fused(*leaves[:3],
+                                         pu_kernel._nested(leaves[3:]))
+
+        def backward():
+            return torch.autograd.grad(y, leaves, ct, retain_graph=True)
+        pu_grad_checks(torch, dt, saved, ct, backward(), recompute())
+        events = time_ms(torch, backward)
+        hosts = []
+        for _ in range(ITERS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            backward()
+            hosts.append(1e3 * (time.perf_counter() - t0))
+        host = statistics.median(hosts)
+        device = device_ms(torch, backward, "pu_chain_reverse")
+        floor = device_ms(torch, lambda: pu_kernel.barrier_walk(
+            b, J, H, dt, "cuda"), "pu_chain_kernel")
+        # the walk: its transposed products, f32 on the CUDA cores,
+        # against the states, output, output gradient and fh it reads and
+        # the gate gradients, dzf, dfh and operands it writes, each once,
+        # and its weights read once
+        walk_flops = 2 * b * J * 13 * H * H
+        rows = pu_kernel.STATES + 3 + 4 + 4 + 1 + 1 + 3
+        walk_bytes = 4 * b * J * H * rows + 13 * H * H * dt.itemsize
+        walk_bound = 1e3 * max(walk_flops / F32_FLOPS,
+                               walk_bytes / HBM_BYTES_PER_S)
+        # the whole backward: the walk, then the weight products as many
+        # operations again, which read the operands and gate gradients
+        # once more and write the weight gradients
+        bound = 1e3 * max(2 * walk_flops / F32_FLOPS,
+                          (walk_bytes + 4 * b * J * H * (3 + 4 + 4 + 1)
+                           + 13 * H * H * dt.itemsize) / HBM_BYTES_PER_S)
+        res = pu_kernel.reverse_resources(dt, b, H)
+        print(f"  C's reverse walk {dt}: {res['registers']} registers, "
+              f"spills {res['spill_store_bytes']} / {res['spill_load_bytes']}"
+              f" bytes, {res['smem_bytes']} bytes of shared memory, "
+              f"{res['blocks']} blocks of {res['units']} units, "
+              f"{res['blocks_per_sm']} a SM of {res['sms']}")
+        if (res["spill_store_bytes"] or res["blocks_per_sm"] < 1
+                or res["blocks"] > res["sms"]):
+            raise AssertionError(f"{dt} C's reverse walk resources: {res}")
+        out[("pu_chain", dt)] = dict(ms=events, host_ms=host, bound_ms=bound,
+                                     device_ms=device,
+                                     device_bound_ms=walk_bound,
+                                     latency_floor_ms=floor, plain_ms=plain)
+        print(f"  backward {dt}: kernel B recompute "
+              f"{out[('attention', dt)]:.3f} ms a launch; kernel C "
+              f"{events:.3f} ms a call (host {host:.3f} ms), bound "
+              f"{bound:.4f} ms (the walk and the weight products, f32 "
+              f"operations); the reverse walk on the device {device:.4f} ms, "
+              f"bound {walk_bound:.4f} ms (its f32 operations), latency "
+              f"floor {floor:.4f} ms; the plain recompute it replaces "
+              f"{plain:.3f} ms [{card}]")
     return out
 
 
 def profile_train_step(torch, task, state, batch, card):
     """Device time of the kernels of one training step under
-    torch.profiler, and of those of the backward recompute of B and C
-    within it (their profiler ranges; a range's own span on the device is
-    not a kernel and is printed apart)."""
+    torch.profiler, and of those of the backward of B (its recompute) and
+    of C within it (their profiler ranges; a range's own span on the
+    device is not a kernel and is printed apart; C's reverse walk is
+    launched from outside PyTorch's ops, so the profiler's op tree gives
+    its range only the weight products, and the span holds it)."""
     from torch.profiler import ProfilerActivity, profile
     from egotap_tpu_torch.breakdown import range_kernels_ms
     from egotap_tpu_torch.ops import attention, pu_kernel
@@ -1067,8 +1185,9 @@ def profile_train_step(torch, task, state, batch, card):
     print(f"  profiled training step: wall {wall:.3f} ms, device kernels "
           f"{total:.3f} ms, of which the backward recompute of B "
           f"{ranges['attention']:.3f} ms (3 launches; their spans on the "
-          f"device {spans['attention']:.3f} ms) and of C "
-          f"{ranges['pu_chain']:.3f} ms (span {spans['pu_chain']:.3f} ms) "
+          f"device {spans['attention']:.3f} ms) and C's backward "
+          f"{ranges['pu_chain']:.3f} ms of weight products (span, with "
+          f"the reverse walk, {spans['pu_chain']:.3f} ms) "
           f"[{card}]")
 
 
@@ -1295,7 +1414,8 @@ STAGE1_PRESETS = ("unrealego_heatmap_joint", "unrealego_heatmap_limb")
 # launches per stage-1 training step: the decoder's three calls of A
 # forward; A's backward recomputes the plain version (profiler range)
 PER_TRAIN1_STEP = {"upsample": 3, "attention": 0, "pu_chain": 0,
-                   "attention_unpacked": 0, "fused_layer1": 0}
+                   "attention_unpacked": 0, "fused_layer1": 0,
+                   "pu_chain_backward": 0}
 # the targets rendered on the card vs on the CPU: the same operations on
 # both, f32 rounding apart; relative where a value exceeds 1 (pixel
 # lengths reach about 90, where one ulp is 7.6e-6)
@@ -1553,6 +1673,9 @@ CLI_PRESETS = ("unrealego_heatmap_joint", "unrealego_heatmap_limb",
 PER_UNIT = {"heatmap_shared": {"upsample": 3},
             "egotap_autoencoder": {"upsample": 6, "attention": 3,
                                    "pu_chain": 1}}
+# what a training step launches besides: C's backward in stage 2
+PER_STEP_BACKWARD = {"heatmap_shared": {},
+                     "egotap_autoencoder": {"pu_chain_backward": 1}}
 # ckpt_best reloaded into a fresh f32 template: its pose on the test
 # split's first batch against pred_pose.npy's rows, relative to their max
 RELOAD_TOL = 1e-6
@@ -1698,7 +1821,9 @@ def phase_cli(torch, card, tmp, device=None, image_size=64,
         print(f"  {preset}: returned after {wall:.2f} s; launches "
               f"{counts} over {units} training steps and eval batches "
               f"(batch {cfg.batch_size})")
-        expect_counts(counts, PER_UNIT[cfg.model], units, preset, device)
+        expect_counts(counts, PER_UNIT[cfg.model], units, preset, device,
+                      PER_STEP_BACKWARD[cfg.model],
+                      2 * len(make_loader(cfg, "train")))
         epochs = check_run_artifacts(cfg)
         for e, t in sorted(epochs.items()):
             print(f"    epoch {e}: {t['epoch_s']:.3f} s = step loop "
@@ -1756,10 +1881,14 @@ def phase_cli(torch, card, tmp, device=None, image_size=64,
     return launches
 
 
-def expect_counts(counts, per_unit, units, label, device):
+def expect_counts(counts, per_unit, units, label, device, per_step=None,
+                  steps=0):
     """Each kernel of the path launched once per unit where its count
-    says, none other (the CPU rehearsal launches nothing)."""
-    want = {k: per_unit.get(k, 0) * units for k in counts}
+    says, plus ``per_step`` once per training step of the ``units``, none
+    other (the CPU rehearsal launches nothing)."""
+    per_step = per_step or {}
+    want = {k: per_unit.get(k, 0) * units + per_step.get(k, 0) * steps
+            for k in counts}
     if device != "cpu" and counts != want:
         raise AssertionError(f"{label}: launches {counts}, expected {want}")
 
@@ -1865,7 +1994,7 @@ VARIANTS = {
 # Predictor forward, per lifter forward, per training step or eval batch
 PER_FORWARD_NO_C = {**PER_FORWARD, "pu_chain": 0}
 PER_LIFTER = {**{n: 0 for n in PER_FORWARD}, "attention": 3}
-PER_LSTM_STEP = {**PER_TRAIN_STEP, "pu_chain": 0}
+PER_LSTM_STEP = {**PER_TRAIN_STEP, "pu_chain": 0, "pu_chain_backward": 0}
 # f32 pose of batch 2, card vs CPU, relative to max|cpu| (phase 3's limit
 # for the whole forward)
 VARIANT_CPU_TOL = 1e-4
@@ -2170,7 +2299,7 @@ TP_DATA, TP_MODEL = 2, 2
 PER_TP_FORWARD = {"upsample": 6 * TP_DATA,
                   "attention": 3 * TP_MODEL * TP_DATA,
                   "pu_chain": TP_DATA, "attention_unpacked": 0,
-                  "fused_layer1": 0}
+                  "fused_layer1": 0, "pu_chain_backward": 0}
 # sharded against unsharded pose, relative to max: f32 (row-parallel
 # partial sums in another order), then phase 3's bf16 and int8 budgets
 SHARD_TOL = {"f32": 1e-5, "bf16": BF16_POSE_TOL, "int8": INT8_POSE_TOL}
@@ -2381,6 +2510,10 @@ def nccl_world_one(torch, card, tmp):
               f"state tensors differ; launches {runs['nccl'][2]}")
         if diff or not same_loss:
             raise AssertionError(f"NCCL world 1 step: {diff[:3]}")
+        for label in ("single", "nccl"):
+            if runs[label][2] != PER_TRAIN_STEP:
+                raise AssertionError(f"{label} step: launches {runs[label][2]}"
+                                     f", expected {PER_TRAIN_STEP}")
         times = {"single": [], "nccl": []}
         for b in batches[1:]:
             for label in ("single", "nccl"):
@@ -2568,7 +2701,8 @@ def phase_data_parallel(torch, card, tmp, cli_tmp):
     shard = functools.partial(make_loader, rank=0, world=2)
     expect_counts(ranks[0]["launches"], PER_UNIT[cfg.model],
                   cli_units(cfg, shard, 1) + cli_units(cfg, shard, 0),
-                  "2-rank cli.train + cli.test, rank 0", None)
+                  "2-rank cli.train + cli.test, rank 0", None,
+                  PER_STEP_BACKWARD[cfg.model], len(shard(cfg, "train")))
     one, _ = cli_test.main(argv)
     worst = max(abs(ranks[0]["metrics"][k] - v) / abs(v)
                 for k, v in one.items())
@@ -2716,7 +2850,8 @@ FUSED_ATOL_F32, FUSED_TOL_BF16 = 2e-4, 2e-2
 # launches per fused forward: kernel A's three decoder calls (one grouped
 # decoder for both nets)
 PER_FUSED_FORWARD = {"upsample": 3, "attention": 0, "pu_chain": 0,
-                     "attention_unpacked": 0, "fused_layer1": 0}
+                     "attention_unpacked": 0, "fused_layer1": 0,
+                     "pu_chain_backward": 0}
 # the legacy encoder / decoder and the S2D-stem encoder, f32 card vs CPU,
 # relative to max|cpu| (phase 3's limit); the S2D stem vs the plain stem
 # of the same weight on the card (the same products, summed in another
@@ -3037,7 +3172,8 @@ def main() -> int:
     # launches of each row: the int8 forward's (bf16 compute) for the bf16
     # rows, the f32 forward's for the f32 attention and PU chain rows, and
     # the entry points' own calls for kernel D and the unpacked wrapper
-    launches = {(n, torch.bfloat16): c for n, c in served["int8"].items()}
+    launches = {(n, torch.bfloat16): c for n, c in served["int8"].items()
+                if n != "pu_chain_backward"}     # in C's rows (phase 5)
     for n in ("attention", "pu_chain"):
         launches[(n, torch.float32)] = served["f32"][n]
     launches[("fused_layer1", torch.bfloat16)] = fused
@@ -3101,8 +3237,15 @@ def main() -> int:
             kernels[-1]["train_step_launches"] = \
                 train["counts"][key] / TRAIN_STEPS
             kernels[-1]["eval_step_launches"] = evaluation[key]
-        if (key, dt) in train["backward"]:
+        if key == "attention" and (key, dt) in train["backward"]:
             kernels[-1]["backward_ms"] = train["backward"][(key, dt)]
+        if key == "pu_chain":             # C's backward kernel, phase 5
+            kernels[-1].update({f"backward_{k}": v for k, v in
+                                train["backward"][(key, dt)].items()})
+            kernels[-1]["train_step_backward_launches"] = \
+                train["counts"]["pu_chain_backward"] / TRAIN_STEPS
+            kernels[-1]["dp_train_step_backward_launches"] = \
+                dp[dt]["launches"]["pu_chain_backward"]
         # the CLI runs of phase 8 (training in bf16, cli.test in f32)
         if dt == torch.bfloat16 and key in PER_UNIT["egotap_autoencoder"]:
             kernels[-1]["cli_launches"] = {run: c[key]

@@ -17,7 +17,10 @@ float matrix products, convolutions, the rest), each group's top
 kernels by name. ``--train`` profiles `ITERS` stage-2 training steps
 instead (`train.tasks.LifterTask` with the egotap_unrealego preset: bf16
 amp, AdamW, batch 32, seeded `init_state`), and adds the device time of
-the backward recompute of kernels B and C (their profiler ranges).
+the backward of kernels B (its recompute) and C in their profiler ranges
+(by the op tree, which gives C's range its weight products but not its
+reverse walk, launched from outside PyTorch's ops; the walk is listed
+with the port's kernels).
 ``--train1`` profiles `ITERS` stage-1 training steps
 (`train.tasks.HeatmapTask` with the unrealego_heatmap_joint preset: bf16
 amp, stage-1 Adam, batch `BATCH1`, seeded `init_state`) on targets

@@ -8,11 +8,12 @@ of them (a skipped bf16 operand rounding), which one-ulp flips of the
 final bf16 rounding would hide from the max.
 
 Gradients: on the card the wrappers of kernels A, B and C are the
-forward of a `torch.autograd.Function` whose backward is autograd over
-the plain version, recomputed from the saved inputs (`plain_vjp`).
-Kernel D (int8 inference) has no backward: its wrapper refuses inputs
-that need a gradient (`refuse_grad`) instead of returning an output cut
-off from autograd. On the CPU the plain versions differentiate.
+forward of a `torch.autograd.Function`. A's and B's backward is autograd
+over the plain version, recomputed from the saved inputs (`plain_vjp`);
+C's is a kernel of its own (`pu_kernel._KernelC`). Kernel D (int8
+inference) has no backward: its wrapper refuses inputs that need a
+gradient (`refuse_grad`) instead of returning an output cut off from
+autograd. On the CPU the plain versions differentiate.
 """
 
 from __future__ import annotations
@@ -64,8 +65,9 @@ def kernel_errors(got: torch.Tensor, ref: torch.Tensor):
 
 
 def launch_counts(reset: bool = False) -> dict:
-    """Each kernel wrapper's count of its launches, by kernel (zeroed
-    first with ``reset``)."""
+    """Each kernel wrapper's count of its launches, by kernel, and kernel
+    C's backward launches as ``pu_chain_backward`` (zeroed first with
+    ``reset``)."""
     from egotap_tpu_torch.ops import (attention, fused_layer1, pu_kernel,
                                       upsample)
     wrappers = {"upsample": upsample.upsample2x_align_corners,
@@ -76,8 +78,11 @@ def launch_counts(reset: bool = False) -> dict:
     if reset:
         for w in wrappers.values():
             w.launches = 0
+        pu_kernel.pu_chain_fused.backward_launches = 0
         attention.multihead_attention_packed.launches_by_heads.clear()
-    return {n: w.launches for n, w in wrappers.items()}
+    counts = {n: w.launches for n, w in wrappers.items()}
+    counts["pu_chain_backward"] = pu_kernel.pu_chain_fused.backward_launches
+    return counts
 
 
 def attention_launches_by_heads() -> dict:

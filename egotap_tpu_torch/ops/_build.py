@@ -37,7 +37,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                   [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
                   "egotap_attention_occupancy": [_I, _VP]},
     "pu_chain": {"egotap_pu_chain": [_VP] * 12 + [_I] * 8 + [_VP],
-                 "egotap_pu_chain_occupancy": [_I] * 5 + [_VP]},
+                 "egotap_pu_chain_save": [_VP] * 13 + [_I] * 7 + [_VP],
+                 "egotap_pu_chain_occupancy": [_I] * 5 + [_VP],
+                 "egotap_pu_chain_backward": [_VP] * 15 + [_I] * 7 + [_VP],
+                 "egotap_pu_chain_backward_occupancy": [_I] * 5 + [_VP]},
     "fused_layer1": {"egotap_fused_layer1": [_VP] * 5 + [_I] * 8 + [_VP],
                      "egotap_fused_layer1_occupancy": [_I] * 5 + [_VP]},
 }

@@ -6,9 +6,12 @@ JAX package's functions at f32.
 On the card each function's forward is its kernel; here the launch is
 replaced by the plain version (for C fed the kernel's (out, in) weight
 rows, padded as the kernel reads them), so the backward under test is
-the one the card runs: autograd over the plain version, recomputed from
-the saved inputs. The CPU path of the wrappers (autograd over the plain
-version directly) is held to the same JAX gradients."""
+the one the card runs for A and B: autograd over the plain version,
+recomputed from the saved inputs. For C the reverse walk's launch is
+played by the plain reverse walk over the states the forward's launch
+wrote, and the weight products and the choice of gradients are the
+card's. The CPU path of the wrappers (autograd over the plain version
+directly) is held to the same JAX gradients."""
 
 import jax
 import jax.numpy as jnp
@@ -110,13 +113,69 @@ def test_attention_grad_matches_jax(kernel_b_on_cpu, layout, through):
 
 
 def _plain_from_rows(fh, gp, rows, biases, b, J, H, units, wdt,
-                     barrier_only):
+                     barrier_only, states=None):
     """Kernel C's launch played by the plain version, reading the weights
-    as the kernel does: (out, in) rows, the first H columns."""
+    as the kernel does: (out, in) rows, the first H columns; a training
+    launch also writes the joints' states into ``states`` in the
+    kernel's order (`pu_kernel.STATES`)."""
     w0, wx2f, wx2h, wh2h = (r[:, :H].t() for r in rows)
     cell1 = {n: {"kernel": w, "bias": bias} for n, w, bias in
              zip(("x2f", "x2h", "h2h"), (wx2f, wx2h, wh2h), biases)}
-    return pu_kernel.pu_chain_plain(fh, gp, w0, cell1)
+    _, st = pu_kernel._plain_walk(fh, gp, w0, cell1)
+    if states is not None:
+        planes = [lambda s, k=k: s["s0"][k] for k in range(4)] + [
+            lambda s: s["c0"], lambda s: s["h0"]] + [
+            lambda s, k=k: s["s1"][k] for k in range(4)] + [
+            lambda s: s["c1"], lambda s: s["fh1"]]
+        for plane, read in zip(states, planes):
+            plane.copy_(torch.stack([read(s) for s in st], dim=1))
+    return torch.stack([s["h1"] for s in st], dim=1)
+
+
+def _reverse_from_states(fh, grad, out, states, rows, b, J, H, units, wdt):
+    """Kernel C's reverse-walk launch played by the plain reverse walk
+    (`pu_kernel._plain_reverse`) over the states that the forward's
+    launch wrote and its output, the weights read from their rows: the
+    gate gradients, dfh and the rounded operands a0, x, a1."""
+    def r(v):
+        return v.to(wdt).float()
+    w = {n: m[:, :H].t().float() for n, m in
+         zip(("w0", "x2f", "x2h", "h2h"), rows)}
+    zero = torch.zeros_like(out[:, 0])
+
+    def prev(t, j):
+        return t[:, j - 1] if j else zero
+    p = states
+    st = []
+    for j in range(J):
+        h1_prev = prev(out, j)
+        st.append(dict(
+            s0=tuple(p[k][:, j] for k in range(4)), c0=p[4][:, j],
+            c0_prev=prev(p[4], j), h0=p[5][:, j],
+            s1=tuple(p[k][:, j] for k in range(6, 10)), c1=p[10][:, j],
+            c1_prev=prev(p[10], j), fh1=p[11][:, j], h1_prev=h1_prev,
+            a0=r(fh[:, j] * prev(p[5], j)), x=r(p[5][:, j]),
+            a1=r(p[11][:, j] * h1_prev)))
+    dg0, dg1, dzf, dfh = pu_kernel._plain_reverse(w, st, fh, grad, wdt)
+    operands = torch.stack([torch.stack([s[k] for s in st], dim=1)
+                            for k in ("a0", "x", "a1")])
+    return dg0, dg1, dzf, dfh, operands
+
+
+def _kernel_c_on_cpu(monkeypatch, launches):
+    """The PU module's chain run by kernel C's autograd function, its
+    forward and reverse-walk launches played on the CPU and recorded in
+    ``launches``."""
+    monkeypatch.setattr(pu_kernel, "_launch", lambda *a, **kw: (
+        launches.append(a[7]) or _plain_from_rows(*a, **kw)))
+    monkeypatch.setattr(pu_kernel, "_launch_backward", lambda *a: (
+        launches.append("backward") or _reverse_from_states(*a)))
+
+    def fused(fh, gp, w0, cell1):
+        return pu_kernel._KernelC.apply(
+            1, True, fh, gp, w0, *(cell1[n][leaf] for n, leaf in
+                                   pu_kernel._CELL1))
+    monkeypatch.setattr(cells, "pu_chain_fused", fused)
 
 
 @pytest.mark.parametrize("through", ["function", "cpu_path"])
@@ -128,14 +187,7 @@ def test_pu_chain_grad_matches_jax(monkeypatch, through, hidden):
     transposed (in, out) views. H = 36 takes the kernel's padded rows."""
     launches = []
     if through == "function":
-        monkeypatch.setattr(pu_kernel, "_launch", lambda *a, **kw: (
-            launches.append(a[7]) or _plain_from_rows(*a, **kw)))
-
-        def fused(fh, gp, w0, cell1):
-            return pu_kernel._KernelC.apply(
-                1, fh, gp, w0, *(cell1[n][leaf] for n, leaf in
-                                 pu_kernel._CELL1))
-        monkeypatch.setattr(cells, "pu_chain_fused", fused)
+        _kernel_c_on_cpu(monkeypatch, launches)
     b, j, n_in = 3, 5, 16
     rng = np.random.default_rng(1)
     x, br = (rng.standard_normal((b, j, n_in)).astype(np.float32)
@@ -156,7 +208,7 @@ def test_pu_chain_grad_matches_jax(monkeypatch, through, hidden):
     m = _port_module(params)
     tx, tbr = (torch.from_numpy(a).requires_grad_(True) for a in (x, br))
     (m(tx, tbr) * torch.from_numpy(ct)).sum().backward()
-    assert len(launches) == (through == "function")
+    assert launches == ([1, "backward"] if through == "function" else [])
     _close(tx.grad, gx)
     _close(tbr.grad, gbr)
     for i in (0, 1):
@@ -164,3 +216,26 @@ def test_pu_chain_grad_matches_jax(monkeypatch, through, hidden):
             lin = getattr(m.layers[i], name)
             _close(lin.weight.grad, np.asarray(g["kernel"]).T)
             _close(lin.bias.grad, g["bias"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pu_chain_weight_grads_laid_out_as_params(monkeypatch, dtype):
+    """The parameters' gradients that `torch.autograd.grad` hands the
+    optimizer (the training step takes them so) through kernel C's
+    backward: each laid out as its parameter, as autograd over the plain
+    version lays them out. A Linear weight's gradient that arrived
+    transposed would send the optimizer's foreach kernels off their fast
+    path."""
+    from egotap_tpu_torch.models.cells import PUChain
+    launches = []
+    _kernel_c_on_cpu(monkeypatch, launches)
+    dt = getattr(torch, dtype)
+    torch.manual_seed(0)
+    m = PUChain(16, 16, 32, 2)
+    x, br = (torch.randn(3, 5, 16).to(dt) for _ in range(2))
+    params = list(m.parameters())
+    grads = torch.autograd.grad(m(x, br).float().sum(), params)
+    assert launches == [1, "backward"]
+    for p, g in zip(params, grads):
+        assert g.shape == p.shape and g.stride() == p.stride(), \
+            (tuple(p.shape), g.stride())

@@ -34,6 +34,14 @@ class Recorder(FakeLibrary):
         self.calls.append(("pu_chain", args))
         return 0
 
+    def egotap_pu_chain_save(self, *args):        # the training forward
+        self.calls.append(("pu_chain", args))
+        return 0
+
+    def egotap_pu_chain_backward(self, *args):
+        self.calls.append(("pu_chain_backward", args))
+        return 0
+
     def egotap_fused_layer1(self, *args):
         self.calls.append(("fused_layer1", args))
         return 0
@@ -117,8 +125,8 @@ def test_refuses_inputs_that_require_grad(fake, which):
 def test_launches_under_grad(fake, which):
     """Kernels A, B and C are the forward of an autograd function: with
     an input that requires grad they launch once, counted once, and
-    return an output whose grad_fn is that function (its backward
-    recomputes the plain version, `tests/test_torch_grad.py`)."""
+    return an output whose grad_fn is that function (its backward:
+    `tests/test_torch_grad.py`)."""
     wrapper, leaves, call = _call(which)
     for leaf in leaves:
         before = wrapper.launches
@@ -165,6 +173,49 @@ def test_pu_chain_launch_arguments(fake, dtype, code, h, units, hp):
     pu_kernel.pu_chain_fused(*_pu_args(b=5, j=7, h=h, dtype=dtype))
     ((name, args),) = fake.calls
     assert args[12:] == (5, 7, h, hp, h, units, code, 0, 0)
+
+
+@pytest.mark.parametrize("dtype,code", [(torch.float32, 0),
+                                        (torch.bfloat16, 1)])
+def test_pu_chain_training_forward_writes_states(fake, dtype, code):
+    """With a gradient wanted, kernel C's forward goes through the
+    library's saving entry point with a (12, B, J, H) f32 states buffer
+    after the counter and the same geometry; under no_grad, through the
+    serving entry point with the serving arguments."""
+    args = _pu_args(b=5, j=7, h=264, dtype=dtype)
+    args[2].requires_grad_(True)
+    with torch.no_grad():
+        pu_kernel.pu_chain_fused(*args)
+    pu_kernel.pu_chain_fused(*args)
+    (_, serving), (_, training) = fake.calls
+    assert serving[12:] == (5, 7, 264, 272, 264, 2, code, 0, 0)
+    assert len(training) == 21 and training[13:] == (5, 7, 264, 272, 264, 2,
+                                                      code, 0)
+
+
+@pytest.mark.parametrize("need", ["all", "w0", "fh"])
+@pytest.mark.parametrize("dtype,code", [(torch.float32, 0),
+                                        (torch.bfloat16, 1)])
+def test_pu_chain_backward_launches_reverse_walk(fake, dtype, code, need):
+    """Kernel C's backward on a non-CPU tensor is one launch of the
+    reverse walk (counted in `backward_launches`, never `plain_vjp`),
+    with the forward's geometry, then the weight products: a gradient
+    for each input that requires one, in its dtype and shape, none for
+    the others."""
+    b, j, h = 5, 7, 264
+    args = _pu_args(b=b, j=j, h=h, dtype=dtype)
+    leaves = args[:3] + [args[3][n][leaf] for n, leaf in pu_kernel._CELL1]
+    wanted = {"all": leaves, "w0": [args[2]], "fh": [args[0]]}[need]
+    for t in wanted:
+        t.requires_grad_(True)
+    out = pu_kernel.pu_chain_fused(*args)
+    before = pu_kernel.pu_chain_fused.backward_launches
+    grads = torch.autograd.grad(out, wanted, _meta(b, j, h))
+    assert pu_kernel.pu_chain_fused.backward_launches == before + 1
+    (name, launch), = [c for c in fake.calls if c[0] == "pu_chain_backward"]
+    assert launch[15:] == (b, j, h, 272, h, 2, code, 0)
+    for g, t in zip(grads, wanted):
+        assert g.shape == t.shape and g.dtype == t.dtype
 
 
 def test_pu_chain_refusals_launch_nothing(fake):

@@ -17,6 +17,7 @@ from egotap_tpu_torch.ops import attention_launches_by_heads, kernel_errors
 from egotap_tpu_torch.ops import pu_kernel
 from egotap_tpu_torch.ops import upsample as up
 from egotap_tpu_torch.serving import init_weights
+from pu_chain_schedule import schedule_vjp
 
 pytestmark = pytest.mark.cuda
 
@@ -263,16 +264,10 @@ def _vjp(fn, leaves, ct):
     return out, torch.autograd.grad(out, leaves, ct)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,j,h", [(32, 15, 512), (3, 4, 36)])
-def test_pu_chain_grad_matches_plain(gen, b, j, h, dtype):
-    """Kernel C's autograd function at the lifter's shape and at H = 36
-    (padded rows): the forward launches the kernel once, and the
-    gradients in fh, gates_pre and every weight and bias, the weights
-    passed as transposed views of (out, in) tensors as the lifter passes
-    its Linear weights, equal those of autograd over the plain version
-    bit for bit (the backward is that recompute)."""
-    dt = getattr(torch, dtype)
+def _pu_leaves(gen, b, j, h, dt):
+    """Kernel C's inputs as leaves, the weights as (out, in) tensors the
+    chain takes transposed (as the lifter passes its Linear weights), a
+    call of a chain function on them, and an output gradient."""
     fh, gp, w0, cell1 = _pu_inputs(gen, b, j, h, dt)
     leaves = [fh, gp, w0.t().contiguous()] + [
         x for n in ("x2f", "x2h", "h2h")
@@ -285,14 +280,129 @@ def test_pu_chain_grad_matches_plain(gen, b, j, h, dtype):
                      for i, n in enumerate(("x2f", "x2h", "h2h"))}
             return fn(fh, gp, w0_rows.t(), cells)
         return run
+    return leaves, call, ct
+
+
+def _plain_vjp_rows(leaves, ct, **faults):
+    """`pu_chain_plain_vjp` at ``leaves`` (weights as (out, in) rows), or
+    with ``faults`` the reverse walk's schedule with those faults
+    (`schedule_vjp`), its weight gradients transposed back to the rows."""
+    fh, gp, w0, *c1 = [x.detach() for x in leaves]
+    cells = {n: {"kernel": c1[2 * i].t(), "bias": c1[2 * i + 1]}
+             for i, n in enumerate(("x2f", "x2h", "h2h"))}
+    vjp = schedule_vjp if faults else pu_kernel.pu_chain_plain_vjp
+    dfh, dgp, dw0, d1 = vjp(fh, gp, w0.t(), cells, ct, **faults)
+    return [dfh, dgp, dw0.t()] + [
+        x for n in ("x2f", "x2h", "h2h")
+        for x in (d1[n]["kernel"].t(), d1[n]["bias"])]
+
+
+def _outside(got, want, tol):
+    """Some gradient of ``got`` reads outside ``tol`` against ``want``."""
+    return any(m > tol[0] or r > tol[1] for m, r in
+               (kernel_errors(g, w)[1:] for g, w in zip(got, want)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,j,h", [(32, 15, 512), (3, 4, 36), (1, 1, 16),
+                                   (8, 17, 512)])
+def test_pu_chain_grad_matches_plain(gen, b, j, h, dtype):
+    """Kernel C's autograd function at the lifter's shape, at H = 36
+    (padded rows), at one joint of one row (H = 16: a unit a block) and
+    at EgoCap's J = 17: the forward launches the kernel once and the
+    backward the reverse walk once, and the gradients in fh, gates_pre
+    and every weight and bias (the weights passed as transposed views of
+    (out, in) tensors, as the lifter passes its Linear weights) hold to
+    `pu_kernel.GRAD_TOL` against autograd over the plain version (what
+    the backward was, `ops.plain_vjp`) and against its plain counterpart
+    `pu_chain_plain_vjp`, each in its input's dtype."""
+    dt = getattr(torch, dtype)
+    leaves, call, ct = _pu_leaves(gen, b, j, h, dt)
     before = pu_kernel.pu_chain_fused.launches
+    back = pu_kernel.pu_chain_fused.backward_launches
     got, grads = _vjp(call(pu_kernel.pu_chain_fused), leaves, ct)
     assert pu_kernel.pu_chain_fused.launches == before + 1
+    assert pu_kernel.pu_chain_fused.backward_launches == back + 1
     ref, want = _vjp(call(pu_kernel.pu_chain_plain), leaves, ct)
     _close(got, ref, pu_kernel.TOL[dt])
-    for g, w in zip(grads, want):
-        assert g.dtype == w.dtype and torch.equal(g, w)
-        assert torch.isfinite(g).all()
+    plain = _plain_vjp_rows(leaves, ct)
+    for g, w, p in zip(grads, want, plain):
+        assert g.dtype == w.dtype == p.dtype and torch.isfinite(g).all()
+        _close(g, w, pu_kernel.GRAD_TOL[dt])
+        _close(g, p, pu_kernel.GRAD_TOL[dt])
+
+
+@pytest.mark.parametrize("fault,dtype", [("unrounded", "bfloat16"),
+                                         ("no_recurrent", "bfloat16"),
+                                         ("no_recurrent", "float32")])
+def test_pu_chain_grad_controls_rejected(gen, fault, dtype):
+    """The negative controls at the lifter's shape: the backward with
+    x's gradient left unrounded, or with layer 1's recurrent gradient
+    term dropped (`schedule_vjp`'s faults), reads outside
+    `pu_kernel.GRAD_TOL` against autograd over the plain version in some
+    gradient, where the kernel reads inside."""
+    dt = getattr(torch, dtype)
+    leaves, call, ct = _pu_leaves(gen, 32, 15, 512, dt)
+    _, want = _vjp(call(pu_kernel.pu_chain_plain), leaves, ct)
+    _, grads = _vjp(call(pu_kernel.pu_chain_fused), leaves, ct)
+    assert not _outside(grads, want, pu_kernel.GRAD_TOL[dt])
+    assert _outside(_plain_vjp_rows(leaves, ct, **{fault: True}), want,
+                    pu_kernel.GRAD_TOL[dt])
+
+
+@pytest.mark.parametrize("wanted", [(0,), (2,), (1, 4, 8), (3, 5, 7)])
+def test_pu_chain_grad_partial(gen, wanted):
+    """Only some inputs require grad (fh alone, the layer-0 kernel alone,
+    gates_pre with two biases, the top cell's kernels): one reverse walk,
+    and those gradients as with every input requiring one."""
+    dt = torch.bfloat16
+    leaves, call, ct = _pu_leaves(gen, 8, 15, 512, dt)
+    _, everything = _vjp(call(pu_kernel.pu_chain_fused), leaves, ct)
+    args = [x.detach().requires_grad_(i in wanted)
+            for i, x in enumerate(leaves)]
+    back = pu_kernel.pu_chain_fused.backward_launches
+    grads = torch.autograd.grad(call(pu_kernel.pu_chain_fused)(*args),
+                                [args[i] for i in wanted], ct)
+    assert pu_kernel.pu_chain_fused.backward_launches == back + 1
+    for g, i in zip(grads, wanted):
+        assert torch.equal(g, everything[i])
+
+
+def test_pu_chain_backward_range(gen, tmp_path):
+    """A profiled training backward holds one range named
+    `pu_kernel.BACKWARD_LABEL` (what the benchmark's recompute_ms reads),
+    and the reverse walk's launch and the weight products' are made
+    inside it (matched to their kernels by the trace's correlation ids,
+    as the benchmark matches them); the walk's kernel is not named as
+    the forward's."""
+    import json
+    from torch.profiler import ProfilerActivity, profile
+    leaves, call, ct = _pu_leaves(gen, 32, 15, 512, torch.bfloat16)
+    _vjp(call(pu_kernel.pu_chain_fused), leaves, ct)          # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _vjp(call(pu_kernel.pu_chain_fused), leaves, ct)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    events = [e for e in json.loads((tmp_path / "trace.json").read_text())[
+        "traceEvents"] if e.get("ph") == "X"]
+    (rng,) = [e for e in events if e["name"] == pu_kernel.BACKWARD_LABEL
+              and e.get("cat") == "user_annotation"]
+    launches = {e["args"]["correlation"]: e for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    inside = []
+    for k in events:
+        if k.get("cat") != "kernel":
+            continue
+        at = launches.get(k["args"].get("correlation"))
+        if at and at["tid"] == rng["tid"] and \
+                rng["ts"] <= at["ts"] <= rng["ts"] + rng["dur"]:
+            inside.append(k["name"])
+    assert sum("pu_chain_reverse" in n for n in inside) == 1, inside
+    assert not any("pu_chain_kernel" in n for n in inside), inside
+    assert len(inside) >= 5, inside                # the weight products too
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -330,7 +440,8 @@ def test_attention_grad_matches_plain(gen, layout, dtype):
 def test_pu_chain_kernel_resources(gen, dtype):
     """At the lifter's (B, H) = (32, 512): the build log and the runtime
     agree on the registers, nothing spills, and the H/U blocks of 4 units
-    are co-resident (one an SM); the barrier-only walk runs."""
+    are co-resident (one an SM); the barrier-only walk runs. The same
+    for the reverse walk's kernel."""
     dt = getattr(torch, dtype)
     res = pu_kernel.kernel_resources(dt, 32, 512)
     assert res["registers"] == res["runtime_registers"] > 0
@@ -339,6 +450,10 @@ def test_pu_chain_kernel_resources(gen, dtype):
     assert res["blocks_per_sm"] >= 1 and res["blocks"] <= res["sms"], res
     pu_kernel.barrier_walk(32, 15, 512, dt, "cuda")
     torch.cuda.synchronize()
+    rev = pu_kernel.reverse_resources(dt, 32, 512)
+    assert rev["registers"] == rev["runtime_registers"] > 0, rev
+    assert rev["spill_store_bytes"] == rev["local_bytes"] == 0, rev
+    assert rev["blocks_per_sm"] >= 1 and rev["blocks"] <= rev["sms"], rev
 
 
 def test_uncovered_shapes_raise(gen):

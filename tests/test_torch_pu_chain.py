@@ -12,6 +12,7 @@ from egotap_tpu.models.cells import PUChain as JaxPUChain
 from egotap_tpu_torch.models import cells
 from egotap_tpu_torch.models.cells import PUChain
 from egotap_tpu_torch.ops import kernel_errors, pu_kernel
+from pu_chain_schedule import schedule_vjp
 
 B, J, IN, H = 3, 6, 32, 64
 
@@ -210,3 +211,153 @@ def test_unknown_semantics_raises():
     with pytest.raises(ValueError, match="semantics"):
         PUChain(IN, IN, H, semantics="graph")
 
+
+
+# ---- kernel C's backward: its plain counterpart `pu_chain_plain_vjp`
+
+GRAD_SHAPES = [(2, 3, 8), (3, 4, 36), (2, 17, 16)]    # (B, J, H)
+
+
+def _grad_inputs(b, j, h, dt, seed=3):
+    """(fh, gates_pre, w0, cell1) as the lifter hands them to the chain,
+    and an output gradient, drawn with numpy."""
+    rng = np.random.default_rng(seed)
+
+    def u(*shape):
+        return torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32)
+                                * h ** -0.5)
+    fh = torch.sigmoid(torch.from_numpy(
+        rng.standard_normal((b, j, h)).astype(np.float32)))
+    gp = torch.from_numpy(
+        0.5 * rng.standard_normal((b, j, 4 * h)).astype(np.float32))
+    cell1 = {n: {"kernel": u(h, m).to(dt), "bias": u(m)}
+             for n, m in (("x2f", h), ("x2h", 4 * h), ("h2h", 4 * h))}
+    ct = torch.from_numpy(rng.standard_normal((b, j, h)).astype(np.float32))
+    return (fh, gp, u(h, 4 * h).to(dt), cell1), ct
+
+
+def _flat(fh, gp, w0, cell1):
+    return [fh, gp, w0] + [cell1[n][leaf] for n, leaf in pu_kernel._CELL1]
+
+
+def _autograd_vjp(args, ct):
+    """Autograd over `pu_chain_plain`: what the card's backward was."""
+    leaves = [t.detach().requires_grad_(True) for t in _flat(*args)]
+    out = pu_kernel.pu_chain_plain(*leaves[:3], pu_kernel._nested(leaves[3:]))
+    return torch.autograd.grad(out, leaves, ct)
+
+
+def _errors(got, want):
+    """Per leaf (max, rms) relative error (`ops.kernel_errors`)."""
+    return [kernel_errors(g, w)[1:] for g, w in zip(got, want)]
+
+
+@pytest.mark.parametrize("b,j,h", GRAD_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_vjp_matches_autograd(dtype, b, j, h):
+    """The explicit reverse walk equals autograd over the plain forward
+    up to the order of its f32 sums (the weight gradients are one product
+    over all joints, autograd adds them joint by joint): within 1e-6 in
+    f32, and within `pu_kernel.GRAD_TOL` in bf16, where such a sum moves
+    a gradient's final bf16 rounding. Each gradient is in its input's
+    dtype."""
+    dt = getattr(torch, dtype)
+    args, ct = _grad_inputs(b, j, h, dt)
+    want = _autograd_vjp(args, ct)
+    got = _flat(*pu_kernel.pu_chain_plain_vjp(*args, ct))
+    assert [g.dtype for g in got] == [t.dtype for t in _flat(*args)]
+    tol = (1e-6, 1e-6) if dt == torch.float32 else pu_kernel.GRAD_TOL[dt]
+    for (max_rel, rms_rel), g in zip(_errors(got, want), got):
+        assert torch.isfinite(g).all()
+        assert max_rel <= tol[0] and rms_rel <= tol[1], (max_rel, rms_rel)
+
+
+@pytest.mark.parametrize("fault,dtype", [("unrounded", "bfloat16"),
+                                         ("no_recurrent", "bfloat16"),
+                                         ("no_recurrent", "float32")])
+def test_plain_vjp_faults_fall_outside_grad_tol(fault, dtype):
+    """The negative controls of the card's checks: the reverse walk with
+    x's gradient left unrounded (bf16 only: f32 rounds nothing), or with
+    layer 1's recurrent gradient term dropped (`schedule_vjp`'s faults),
+    reads outside `pu_kernel.GRAD_TOL` against autograd in some
+    gradient."""
+    dt = getattr(torch, dtype)
+    args, ct = _grad_inputs(32, 15, 64, dt, seed=4)
+    want = _autograd_vjp(args, ct)
+    got = _flat(*schedule_vjp(*args, ct, **{fault: True}))
+    tol = pu_kernel.GRAD_TOL[dt]
+    assert any(m > tol[0] or r > tol[1] for m, r in _errors(got, want))
+
+
+class _PlainChain(torch.autograd.Function):
+    """`pu_chain_plain` whose backward is `pu_chain_plain_vjp`."""
+
+    @staticmethod
+    def forward(ctx, fh, gp, w0, *cell1):
+        ctx.save_for_backward(fh, gp, w0, *cell1)
+        return pu_kernel.pu_chain_plain(fh, gp, w0, pu_kernel._nested(cell1))
+
+    @staticmethod
+    def backward(ctx, grad):
+        fh, gp, w0, *cell1 = ctx.saved_tensors
+        return tuple(_flat(*pu_kernel.pu_chain_plain_vjp(
+            fh, gp, w0, pu_kernel._nested(cell1), grad)))
+
+
+@pytest.mark.parametrize("b,j,h", GRAD_SHAPES)
+def test_plain_vjp_matches_jax_grad(monkeypatch, b, j, h):
+    """At f32, the port's PU module with `pu_chain_plain_vjp` as its
+    chain's backward against `jax.grad` of the JAX package's scan: the
+    gradients in the inputs, the bridges and every parameter of both
+    cells (the chain's gradients reach the layer-0 x2f, x2h, b2h through
+    fh and gates_pre)."""
+    rng = np.random.default_rng(5)
+    x, br = (rng.standard_normal((b, j, IN)).astype(np.float32)
+             for _ in range(2))
+    ct = rng.standard_normal((b, j, h)).astype(np.float32)
+    model = JaxPUChain(IN, IN, h, 2)
+    params = jax.tree.map(np.asarray, model.init(
+        jax.random.PRNGKey(5), jnp.zeros((1, j, IN)),
+        jnp.zeros((1, j, IN)))["params"])
+
+    def loss(params, x, br):
+        return jnp.sum(model.apply({"params": params}, x, br) * ct)
+    gp, gx, gbr = jax.grad(loss, argnums=(0, 1, 2))(params, x, br)
+
+    monkeypatch.setattr(cells, "pu_chain_fused", lambda fh, g, w0, c1:
+                        _PlainChain.apply(fh, g, w0, *(c1[n][leaf] for n, leaf
+                                                       in pu_kernel._CELL1)))
+    monkeypatch.setitem(globals(), "H", h)
+    m = _port_module(params)
+    tx, tbr = (torch.from_numpy(a).requires_grad_(True) for a in (x, br))
+    (m(tx, tbr) * torch.from_numpy(ct)).sum().backward()
+    pairs = [(tx.grad, gx), (tbr.grad, gbr)]
+    for i in (0, 1):
+        for name, g in gp[f"cell{i}"].items():
+            lin = getattr(m.layers[i], name)
+            pairs += [(lin.weight.grad, np.asarray(g["kernel"]).T),
+                      (lin.bias.grad, g["bias"])]
+    for got, want in pairs:
+        want = np.asarray(want)
+        assert np.abs(got.numpy() - want).max() <= TOL["float32"] * \
+            np.abs(want).max()
+
+
+@pytest.mark.parametrize("j", [1, 2, 5])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reverse_schedule_matches_plain_vjp(dtype, j):
+    """The reverse walk's schedule (`reverse_schedule`, the kernel's
+    intervals) computes the plain backward: its gradients equal
+    `pu_chain_plain_vjp`'s bit for bit. A layer 0 that reads dG0's
+    product one joint late falls outside `pu_kernel.GRAD_TOL` (from
+    J = 2 on: with one joint there is no later joint to read)."""
+    dt = getattr(torch, dtype)
+    args, ct = _grad_inputs(3, j, 36, dt, seed=6)
+    want = _flat(*pu_kernel.pu_chain_plain_vjp(*args, ct))
+    for g, w in zip(_flat(*schedule_vjp(*args, ct)), want):
+        assert torch.equal(g, w)
+    if j >= 2:
+        late = _flat(*schedule_vjp(*args, ct, da0_lag=1))
+        tol = pu_kernel.GRAD_TOL[dt]
+        assert any(m > tol[0] or r > tol[1] for m, r in
+                   _errors(late[:2], want[:2]))
