@@ -51,6 +51,7 @@ from egotap_tpu_torch.ops.fused_layer1 import (fold_bn, fused_layer1_int8,
                                                pack_blocks)
 from egotap_tpu_torch.ops.quant import (QConv, WeightCache, conv_nhwc_float,
                                         quantize_weights, quantized_conv)
+from egotap_tpu_torch.utils import profiling
 
 RESNET_SPECS = {
     "resnet18": ("basic", (2, 2, 2, 2)),
@@ -155,6 +156,7 @@ class BasicBlock(_Block):
         a_scale = conv.calib_or_static(inp)
         stride, pad = conv.stride[0], conv.padding[0]
         if a_scale is None and inp.shape[-1] < 128:
+            profiling.count("int8.float_convs")
             w, c = _fold(conv, bn)
             out = conv_nhwc_float(inp, w.to(inp.dtype), stride, pad)
             return out + c.to(out.dtype)

@@ -36,6 +36,15 @@ also records ``max|x|`` in f32 (JAX `_calib_or_static`); `install_scales`
 turns the records into ``a_scale`` (JAX `amax_to_qparams` +
 `merge_qparams`). State dicts are unchanged: the int8 weights and scales
 are non-persistent buffers, so reference checkpoints strict-load.
+
+Tracing (`utils/profiling.py`): `quantized_conv` runs in the span
+``int8.conv``, `quantized_dense` and `QuantStub` in ``int8.dense``, and
+the integer product of `int8_matmul` (the library call alone, after its
+operands are padded and laid out) in ``int8.matmul``; under a profiler
+these are the ranges ``egotap.int8.*``. Counters of the innermost root
+span: ``int8.products`` (products run), ``int8.macs`` (M·N·K of each, the
+sizes before padding) and ``int8.float_convs`` (convolutions of an int8
+net that ran as float convolutions for want of a static scale).
 """
 
 from __future__ import annotations
@@ -45,6 +54,8 @@ from typing import Iterable, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from egotap_tpu_torch.utils import profiling
 
 QMAX = 127.0
 
@@ -89,13 +100,17 @@ def int8_matmul(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
     the result is cut back. B goes in column-major."""
     m, k = a.shape
     n = b_t.shape[0]
+    profiling.count("int8.products")
+    profiling.count("int8.macs", m * n * b_t.shape[1])
     kp = -(-k // 8) * 8
     pm = 32 - m if m <= 16 else 0
     if kp != k or pm:
         a = F.pad(a, (0, kp - k, 0, pm))
     if b_t.shape[1] != kp or n % 8:
         b_t = F.pad(b_t, (0, kp - b_t.shape[1], 0, (-n) % 8))
-    out = torch._int_mm(a.contiguous(), b_t.contiguous().t())
+    a, b = a.contiguous(), b_t.contiguous().t()
+    with profiling.span("int8.matmul"):
+        out = torch._int_mm(a, b)
     return out[:m, :n]
 
 
@@ -140,11 +155,12 @@ def quantized_conv(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
     """NHWC int8 conv of x with an OIHW int8 weight ``wq`` and its
     per-output ``w_scale`` (`quantize_weights`), dynamic or static
     (``a_scale``) activation scale; returns x's dtype."""
-    xq, a_scale = quantize_activation(x, a_scale)
-    cols, (ho, wo) = im2col(xq, wq.shape[-1], stride, padding)
-    acc = int8_matmul(cols, conv_weight_rows(wq))
-    out = dequantize(acc, a_scale, w_scale, bias, x.dtype)
-    return out.reshape(x.shape[0], ho, wo, -1)
+    with profiling.span("int8.conv"):
+        xq, a_scale = quantize_activation(x, a_scale)
+        cols, (ho, wo) = im2col(xq, wq.shape[-1], stride, padding)
+        acc = int8_matmul(cols, conv_weight_rows(wq))
+        out = dequantize(acc, a_scale, w_scale, bias, x.dtype)
+        return out.reshape(x.shape[0], ho, wo, -1)
 
 
 def quantized_dense(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
@@ -154,11 +170,12 @@ def quantized_dense(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
                     = None) -> torch.Tensor:
     """int8 ``x @ wq.T`` (``wq`` (out, in) int8, per-output ``w_scale``);
     ``pre_q`` supplies already-quantized ``(xq, a_scale)``."""
-    xq, a_scale = pre_q if pre_q is not None \
-        else quantize_activation(x, a_scale)
-    acc = int8_matmul(xq.reshape(-1, xq.shape[-1]), wq)
-    out = dequantize(acc, a_scale, w_scale, bias, x.dtype)
-    return out.reshape(*x.shape[:-1], -1)
+    with profiling.span("int8.dense"):
+        xq, a_scale = pre_q if pre_q is not None \
+            else quantize_activation(x, a_scale)
+        acc = int8_matmul(xq.reshape(-1, xq.shape[-1]), wq)
+        out = dequantize(acc, a_scale, w_scale, bias, x.dtype)
+        return out.reshape(*x.shape[:-1], -1)
 
 
 class Calibrated:
@@ -220,6 +237,7 @@ class QConv(WeightCache, Calibrated, nn.Conv2d):
         in_ch = x.shape[-1]
         a_scale = self.calib_or_static(x) if in_ch >= 64 else None
         if in_ch < 128 and a_scale is None:
+            profiling.count("int8.float_convs")
             out = conv_nhwc_float(x, self.weight.to(x.dtype), self.stride[0],
                                   self.padding[0])
             return out if self.bias is None else out + self.bias.to(out.dtype)
@@ -268,7 +286,8 @@ class QuantStub(Calibrated, nn.Module):
 
     def forward(self, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        return quantize_activation(x, self.calib_or_static(x))
+        with profiling.span("int8.dense"):
+            return quantize_activation(x, self.calib_or_static(x))
 
 
 def conv_nhwc_float(x: torch.Tensor, weight: torch.Tensor, stride: int,

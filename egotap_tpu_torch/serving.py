@@ -209,20 +209,23 @@ class Predictor:
         records max|x| in the forward as it stands (dynamic scales for
         >= 128 input channels, float for 64-127, and the lifter on that
         forward's heatmap stack), then gets ``a_scale = max(amax, 1e-12)
-        / 127``. With static scales the outputs of a sample no longer
-        depend on the rest of its batch, and the 64-channel convs
-        quantize too. A no-op unless an int8 mode is on. Returns self."""
+        / 127``; all inside the set-up span ``setup.calibrate``. With
+        static scales the outputs of a sample no longer depend on the rest
+        of its batch, and the 64-channel convs quantize too. A no-op
+        unless an int8 mode is on. Returns self."""
         if not any(self.int8):
             return self
-        set_calibrating(self.nets, True)
-        try:
-            for rgb in rgb_batches:
-                hm = self._heatmap_stack(torch.as_tensor(rgb).to(self.device))
-                if self.int8[1]:
-                    self.lifter(hm)
-        finally:
-            set_calibrating(self.nets, False)
-        install_scales(self.nets)
+        with profiling.span("setup.calibrate", always=True):
+            set_calibrating(self.nets, True)
+            try:
+                for rgb in rgb_batches:
+                    hm = self._heatmap_stack(
+                        torch.as_tensor(rgb).to(self.device))
+                    if self.int8[1]:
+                        self.lifter(hm)
+            finally:
+                set_calibrating(self.nets, False)
+            install_scales(self.nets)
         if self._layout is not None:      # re-place the new scales
             self._place(*self._layout)
         return self

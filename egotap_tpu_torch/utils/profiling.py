@@ -21,9 +21,14 @@ span also opens a `record_function` range named ``egotap.<name>`` (exactly
 ``name`` with ``prefix=""``), so kernels launched inside it belong to it
 in the trace.
 
-The records sit in a buffer of `MAX_RECORDS`; records past it are dropped
-and counted. `records()`, `summary()`, `dropped()` and `reset()` read and
-clear it.
+`count(name, n)` adds ``n`` to the counter ``name`` of the innermost root
+span open (None outside one), under the same rule: it records under a
+profiler or between `enable()` and `disable()`, and off it costs one
+check. `counters()` sums them per root span's name.
+
+The records, spans and counts alike, sit in a buffer of `MAX_RECORDS`;
+records past it are dropped and counted. `records()`, `summary()`,
+`counters()`, `dropped()` and `reset()` read and clear it.
 
 `trace` records host and card activity over a region into a Chrome trace
 (``trace.json``, open it in chrome://tracing or Perfetto) in
@@ -63,18 +68,27 @@ class Record(NamedTuple):
     thread: int
 
 
+class Count(NamedTuple):
+    name: str
+    n: int
+    root_name: Optional[str]
+    root: Optional[int]
+
+
 class Recorder:
-    """The buffer of recorded spans, the open spans of each thread and the
-    root identifier in force."""
+    """The buffer of recorded spans and counts, the open spans of each
+    thread and the root span in force (its identifier and name)."""
 
     def __init__(self):
         self.limit = MAX_RECORDS
         self.on = False
         self.root: Optional[int] = None
+        self.root_name: Optional[str] = None
         self.ids = itertools.count()
         self.local = threading.local()
         self._lock = threading.Lock()
         self._records: List[Record] = []
+        self._counts: List[Count] = []
         self._dropped = 0
 
     def open_spans(self) -> List[int]:
@@ -85,16 +99,26 @@ class Recorder:
             stack = self.local.stack = []
         return stack
 
-    def add(self, record: Record) -> None:
+    def _keep(self, into: list, item) -> None:
         with self._lock:
-            if len(self._records) < self.limit:
-                self._records.append(record)
+            if len(self._records) + len(self._counts) < self.limit:
+                into.append(item)
             else:
                 self._dropped += 1
+
+    def add(self, record: Record) -> None:
+        self._keep(self._records, record)
+
+    def add_count(self, count: Count) -> None:
+        self._keep(self._counts, count)
 
     def records(self) -> List[Record]:
         with self._lock:
             return list(self._records)
+
+    def counts(self) -> List[Count]:
+        with self._lock:
+            return list(self._counts)
 
     def dropped(self) -> int:
         return self._dropped
@@ -102,6 +126,7 @@ class Recorder:
     def reset(self) -> None:
         with self._lock:
             self._records.clear()
+            self._counts.clear()
             self._dropped = 0
 
 
@@ -111,7 +136,7 @@ _OFF = contextlib.nullcontext()
 
 class _Span:
     __slots__ = ("name", "label", "new_root", "id", "parent", "root",
-                 "outer_root", "range", "start")
+                 "outer_root", "outer_root_name", "range", "start")
 
     def __init__(self, name: str, label: str, root: Optional[int]):
         self.name, self.label, self.new_root = name, label, root
@@ -122,9 +147,9 @@ class _Span:
         self.parent = stack[-1] if stack else None
         self.id = next(rec.ids)
         stack.append(self.id)
-        self.outer_root = rec.root
+        self.outer_root, self.outer_root_name = rec.root, rec.root_name
         if self.new_root is not None:
-            rec.root = self.new_root
+            rec.root, rec.root_name = self.new_root, self.name
         self.root = rec.root
         self.range = None
         self.start = time.time_ns()
@@ -140,7 +165,7 @@ class _Span:
         rec = _RECORDER
         rec.open_spans().pop()
         if self.new_root is not None:
-            rec.root = self.outer_root
+            rec.root, rec.root_name = self.outer_root, self.outer_root_name
         rec.add(Record(self.name, self.start, end, self.id, self.parent,
                        self.root, threading.get_ident()))
 
@@ -153,6 +178,14 @@ def span(name: str, root: Optional[int] = None, prefix: str = PREFIX,
     if not (always or _RECORDER.on or _profiler_enabled()):
         return _OFF
     return _Span(name, prefix + name, root)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` of the innermost root span open,
+    when recording is on."""
+    rec = _RECORDER
+    if rec.on or _profiler_enabled():
+        rec.add_count(Count(name, int(n), rec.root_name, rec.root))
 
 
 def enable() -> None:
@@ -170,12 +203,13 @@ def records() -> List[Record]:
 
 
 def dropped() -> int:
-    """Spans closed while the buffer was full, since the last `reset`."""
+    """Spans closed and counts made while the buffer was full, since the
+    last `reset`."""
     return _RECORDER.dropped()
 
 
 def reset() -> None:
-    """Empty the buffer and zero the dropped count."""
+    """Empty the buffer (spans and counts) and zero the dropped count."""
     _RECORDER.reset()
 
 
@@ -202,6 +236,16 @@ def summary() -> Dict[str, Dict[str, float]]:
             outer = by_id.get(outer.parent)
         if outer is None:
             s["total_ms"] += ns / 1e6
+    return out
+
+
+def counters() -> Dict[Optional[str], Dict[str, int]]:
+    """Per root span's name (None: counted outside any root span), the sum
+    of each counter."""
+    out: Dict[Optional[str], Dict[str, int]] = {}
+    for c in _RECORDER.counts():
+        sums = out.setdefault(c.root_name, {})
+        sums[c.name] = sums.get(c.name, 0) + c.n
     return out
 
 

@@ -2,7 +2,9 @@
 record nothing and open no profiler range; on, a request and a training
 step leave their phases under one root; the recorded times sit on the
 profiler trace's clock; set-up spans always record; the buffer's bound
-drops and counts; `summary`'s totals and self times."""
+drops and counts; `summary`'s totals and self times. Counters add up per
+root span and share the bound; an int8 request leaves its ``int8.*``
+spans and counters, a bfloat16 one none; calibration is a set-up span."""
 
 import json
 import threading
@@ -205,3 +207,111 @@ def test_summary_totals_and_self_times():
     s = profiling.summary()
     assert s["outer"] == {"count": 1, "total_ms": 10.0, "self_ms": 6.0}
     assert s["inner"] == {"count": 3, "total_ms": 6.0, "self_ms": 6.0}
+
+
+@pytest.fixture(scope="module")
+def int8_requests():
+    """One int8 predictor's recordings: a request before calibration
+    (dynamic scales), its calibration with recording off, a request after
+    (static scales); as (records, counters) each. One intra-op thread: the
+    suite runs files in parallel workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    pred = Predictor(serving_config(**SMALL), bf16=False, int8=True,
+                     device="cpu")
+    out = {}
+    try:
+        for name, step in (("dynamic", lambda: pred(rgb())),
+                           ("calibrate",
+                            lambda: pred.calibrate([rgb(seed=3)])),
+                           ("static", lambda: pred(rgb()))):
+            profiling.reset()
+            if name != "calibrate":
+                profiling.enable()
+            step()
+            profiling.disable()
+            out[name] = (profiling.records(), profiling.counters())
+    finally:
+        profiling.disable()
+        profiling.reset()
+        torch.set_num_threads(threads)
+    return out
+
+
+def test_counters_add_up_per_root():
+    profiling.enable()
+    profiling.count("outside", 2)
+    for root in (1, 2):
+        with profiling.span("serve.request", root=root):
+            profiling.count("int8.macs", 10 * root)
+            with profiling.span("stage1"):
+                profiling.count("int8.macs", 1)
+                profiling.count("int8.products")
+    with profiling.span("train.step", root=9):
+        profiling.count("int8.products", 3)
+    profiling.count("outside")
+    assert profiling.counters() == {
+        None: {"outside": 3},
+        "serve.request": {"int8.macs": 32, "int8.products": 2},
+        "train.step": {"int8.products": 3}}
+    profiling.disable()
+    profiling.count("outside")
+    assert profiling.counters()[None] == {"outside": 3}
+
+
+def test_counts_drop_past_the_bound(monkeypatch):
+    monkeypatch.setattr(profiling._RECORDER, "limit", 3)
+    profiling.enable()
+    with profiling.span("x"):
+        for _ in range(4):
+            profiling.count("n")
+    # three counts fill the buffer: the fourth and the span closing after
+    # them are dropped
+    assert profiling.counters() == {None: {"n": 3}}
+    assert profiling.records() == [] and profiling.dropped() == 2
+    profiling.reset()
+    assert profiling.counters() == {} and profiling.dropped() == 0
+
+
+def test_int8_request_holds_its_products(int8_requests):
+    """Static scales: every quantised conv and dense of the request runs
+    in ``int8.conv`` / ``int8.dense`` holding one ``int8.matmul``, each
+    product counted once; a bfloat16 request records no int8 span or
+    counter."""
+    recs, counters = int8_requests["static"]
+    (req,) = [r for r in recs if r.name == "serve.request"]
+    by_id = {r.id: r for r in recs}
+    calls = [r for r in recs if r.name in ("int8.conv", "int8.dense")]
+    products = [r for r in recs if r.name == "int8.matmul"]
+    assert all(by_id[r.parent].name in ("int8.conv", "int8.dense")
+               for r in products)
+    assert {r.root for r in calls + products} == {req.root}
+    counts = counters["serve.request"]
+    assert counts["int8.products"] == len(products) > 0
+    assert counts["int8.macs"] > 0 and "int8.float_convs" not in counts
+    # a ViT layer's q, k and v share one quantisation: 3 stubs, 3 products
+    # more than their dense calls
+    stubs = [r for r in calls if r.name == "int8.dense"
+             and not any(p.parent == r.id for p in products)]
+    assert len(stubs) == 3 and len(calls) == len(products) + 3
+    profiling.enable()
+    Predictor(serving_config(**SMALL), bf16=True, device="cpu")(rgb())
+    names = {r.name for r in profiling.records()}
+    assert not {n for n in names if n.startswith("int8.")}
+    assert profiling.counters() == {}
+
+
+def test_dynamic_scales_count_float_convs(int8_requests):
+    """Before calibration the 64-channel convolutions of an int8 net run
+    as float convolutions, and are counted (the stem is no int8 conv)."""
+    counts = int8_requests["dynamic"][1]["serve.request"]
+    # per net: layer1's 4 convolutions and layer2's first conv1 and
+    # downsample read 64 channels
+    assert counts["int8.float_convs"] == 2 * 6
+
+
+def test_calibrate_records_without_a_profiler(int8_requests):
+    recs, counters = int8_requests["calibrate"]
+    assert [r.name for r in recs] == ["setup.calibrate"]
+    assert recs[0].end_ns > recs[0].start_ns
+    assert counters == {}
