@@ -21,25 +21,32 @@ Exits non-zero, printing no result, when there is no card. Phases:
    registers, spill bytes and shared memory (``ptxas -v``) and the
    blocks of it one SM holds (for A its grid at each shape, for C its
    blocks and units a block, for D its cluster size and
-   ``cudaOccupancyMaxActiveClusters``); for A, C and D the device time of
-   a launch alone (torch.profiler), for C also of its walk with its grid
+   ``cudaOccupancyMaxActiveClusters``); for A, C, D and E the device time
+   of a launch alone (torch.profiler; a trace that dropped most launches
+   is taken again, up to 3 in all), for C also of its walk with its grid
    barriers alone, its latency floor. Kernels:
    A upsample, B packed attention and B on the unpacked layout, C PU
    chain, D fused int8 layer1 (also timed against the unfused int8
-   layer1 it replaces).
+   layer1 it replaces), E eval BatchNorm + residual + ReLU at resnet50's
+   layer1 shapes (bit for bit; its device time held within 1.5 times its
+   byte bound; controls: in f32 an FMA-contracted BatchNorm, in bf16 its
+   product rounded to bf16 and a residual added before the BatchNorm's
+   rounding).
 3. Full path: a full-width `Predictor` (UnrealEgo, resnet18, Grid-ViT
    width 1024 x 3 layers, PU hidden 512) with seeded random weights
    serves 3 requests of (32, 2, 256, 256, 3) in bf16, in f32 and in the
    int8 serving configuration (bf16 compute, int8 heatmap nets and
    lifter, static scales calibrated on 2 batches of rgb + 0.1 noise);
    the launch counters must rise by exactly 6 (upsample), 3 (attention)
-   and 1 (PU chain) per forward; batch-2 f32 requests are cross-checked
+   and 1 (PU chain) per forward, and kernel E's by 34 (bf16, f32) or 2
+   (int8: the stems' BatchNorms); batch-2 f32 requests are cross-checked
    against the same port on the CPU (the int8 one under the card's
    static scales, free-running and with the card's int8 codes held
    against the CPU's and replaced by them, `CodeTape`), the bf16 poses
    against the f32 ones and the int8 poses against the bf16 ones.
 4. Entry points off the Predictor's path: the int8 ResNet encoder with
-   the fused layer1 (kernel D once per forward) on (64, 256, 256, 3)
+   the fused layer1 (kernel D once per forward, E once: the stem) on
+   (64, 256, 256, 3)
    bf16 against the unfused int8 encoder, and one call of the unpacked
    attention wrapper at the Grid-ViT's (32, 8, 576, 128) in bf16 and
    in f32.
@@ -52,7 +59,8 @@ Exits non-zero, printing no result, when there is no card. Phases:
    moved (the ViT's query weights and the PU chain's top cell, reachable
    only through the backward of B and C), the frozen nets' parameters
    unchanged bit for bit and their running statistics moved, launches
-   per step A 6, B 3, C 1, D 0 and C's backward 1; B's backward
+   per step A 6, B 3, C 1, D 0, E 0 (train-mode BatchNorm) and C's
+   backward 1; B's backward
    recompute and C's backward kernel timed (C's also by the host clock,
    its reverse walk on the device, beside its bound, latency floor and
    the plain recompute it replaced) and inside one profiled step. Then
@@ -62,7 +70,7 @@ Exits non-zero, printing no result, when there is no card. Phases:
    graph).
 6. The eval step of the serving configuration (bf16, int8 heatmap nets
    and lifter calibrated by `prepare_inference` on 2 batches of rgb + 0.1
-   noise, batch 32): launches as a forward, its pose equal bit for bit
+   noise, batch 32): launches as the int8 forward, its pose equal bit for bit
    to a `Predictor` with the same weights and scales, mpjpe / pa_mpjpe
    within 1e-4 of float64 numpy (norms, SVD Procrustes with the
    reflection fix), the median time of 10 steps.
@@ -77,7 +85,7 @@ Exits non-zero, printing no result, when there is no card. Phases:
    recomputes (profiler ranges), every trained parameter and running
    statistic moved, the loss at steps 1 and 12 (finite, falling). For the
    joint preset the f32 eval step of the trained state against the CPU's
-   (mse_heatmap); kernel A's backward recompute a launch by events; one
+   (mse_heatmap; A 3 and E 17 launches); kernel A's backward recompute a launch by events; one
    f32 step of batch 2 on the card against the CPU (losses, the UNet's
    gradient by relative L2) and the same check rejecting A's output
    detached from the graph.
@@ -94,7 +102,8 @@ Exits non-zero, printing no result, when there is no card. Phases:
    ckpt_best and ckpt_2 but no ckpt_1, test_result.txt with categories
    001 and 002; detail_result.txt with 64 rows, categorical_result.txt,
    pred_pose.npy of (64, 16, 3)); the launches of A, B and C, one set a
-   training step or eval batch; every tensor of each final state on the
+   training step or eval batch, and E's, 17 (stage 1) or 34 (stage 2)
+   an eval batch and none a training step; every tensor of each final state on the
    card; the stage-2 state right after `_init_task_state` equal to both
    stage-1 ``ckpt_best`` bit for bit (a copy with one element changed
    caught), and its frozen parameters still equal after training;
@@ -107,7 +116,7 @@ Exits non-zero, printing no result, when there is no card. Phases:
 9. The lifter's other skeleton layers and the learned-LR optimizers at
    full width. (a) A bf16 `Predictor` with skel_layer "LSTM" (the
    Config default: a tree walk, no kernel C) serves 3 requests of (32,
-   2, 256, 256, 3), launches A 6, B 3, C 0 a forward; then the lifter
+   2, 256, 256, 3), launches A 6, B 3, C 0, E 34 a forward; then the lifter
    alone, on that Predictor's bf16 heatmap stack, for each of LSTM,
    LSTMSplit, LSTMNoRel, None, NoneNoRel, the PU tree walk and a 3-layer
    PU chain (both walked in plain PyTorch): the median time of 5 bf16
@@ -129,7 +138,8 @@ Exits non-zero, printing no result, when there is no card. Phases:
    --skel_layer LSTM --optimizer_type DAdam` (1 epoch) on phase 8's
    dataset, warm-started from phase 8's stage-1 ckpt_best (the preset's
    lr 0 at step 0 is DAdam's zero-denominator step), then `cli.test`:
-   launches A 6, B 3, C 0 a step or eval batch, finite epoch losses,
+   launches A 6, B 3, C 0 a step or eval batch and E 34 an eval batch,
+   finite epoch losses,
    the run's artifacts, DAdam's state in ckpt_best, and ckpt_best in a
    fresh f32 template giving pred_pose.npy's rows within 1e-6 of their
    max (one tensor perturbed rejected).
@@ -157,13 +167,15 @@ Exits non-zero, printing no result, when there is no card. Phases:
    against its plain version, timed; `Predictor.shard(2, num_model=2,
    devices=[cuda:0] * 4)` in f32, bf16 and calibrated int8 at batch 32
    and a ragged 31 against the same predictor unsharded (1e-5, and
-   phase 3's bf16 and int8 budgets), launches a forward A 12, B 12, C 2;
+   phase 3's bf16 and int8 budgets), launches a forward A 12, B 12, C 2,
+   E 68 (int8: 4);
    the bf16 forward's time unsharded and over 1 x 2 and 2 x 2 shards.
    Each part's wall time.
 11. The Bottleneck nets and the fused net at full width. (a) resnet50
    `Predictor`s (Grid-ViT 1024 x 3 x 8 heads, PU hidden 512, seeded
    weights) serve 3 requests of (32, 2, 256, 256, 3) in bf16, f32 and
-   calibrated int8, launches A 6, B 3, C 1, D 0 a forward; bf16 vs f32
+   calibrated int8, launches A 6, B 3, C 1, D 0, E 98 a forward (a
+   resnet101 forward E 200); bf16 vs f32
    and int8 vs bf16 within phase 3's limits; the f32 heatmap stack at
    batch 1 on 128 x 128 images against the same nets on the CPU (1e-4 of
    max); a resnet101 bf16 `Predictor` likewise (3 requests). (b)
@@ -175,7 +187,8 @@ Exits non-zero, printing no result, when there is no card. Phases:
    images card vs CPU with its control. (c) `FusedHeatmapUNet` built by
    `fuse_heatmap_variables` from phase 3's two resnet18 nets at (32, 2,
    256, 256, 3): f32 within 2e-4 of the separate nets, bf16 within 2e-2
-   of max, A 3 launches a forward, fused and separate forwards timed.
+   of max, A 3 and E 17 launches a forward, fused and separate forwards
+   timed.
    (d) Kernel A against its plain version at the resnet50 decoder's
    shapes (32, 8, 8, 4096), (32, 16, 16, 4096), (32, 32, 32, 2048), as in
    phase 2, in a process of its own, run first (after phase 10 this
@@ -185,7 +198,8 @@ Exits non-zero, printing no result, when there is no card. Phases:
    Each part's wall time.
 12. One JSON line with every kernel's numbers (with each bf16 kernel's
    launches per training and eval step, A's per stage-1 step, the
-   backward recompute time a launch of A (stage 1) and B, C's backward
+   backward recompute time a launch of A (stage 1) and B, E's launches
+   in the resnet18 and resnet50 serving forwards, C's backward
    kernel's times, bound and launches a training step, the
    launches of A, B and C in each CLI run of phase 8, each bf16
    kernel's launches per LSTM training step and in the LSTM CLI runs of
@@ -256,29 +270,37 @@ def time_ms(torch, fn, iters=ITERS, warmup=3):
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+DEVICE_TRACES = 3
+
+
 def device_ms(torch, fn, kernel, iters=ITERS):
     """Median device time of one launch of the kernel whose name holds
     ``kernel``, one launch a call of ``fn``, under torch.profiler: the
     kernel alone, without its wrapper's host time and small allocations
     (a short kernel's CUDA-event time is its host time when the host is
-    the slower side)."""
+    the slower side). A trace that dropped most launches is taken again,
+    up to `DEVICE_TRACES` traces in all."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    times = [evt.device_time_total / 1e3 for evt in prof.events()
-             if evt.device_type == torch.autograd.DeviceType.CUDA
-             and kernel in evt.name]
-    # the trace may drop a few events (an H100 once showed 18 of 20
-    # launches); more than asked for means another kernel matched
-    if not iters // 2 <= len(times) <= iters:
-        raise AssertionError(f"the profiler saw {len(times)} launches of "
-                             f"{kernel}, not {iters}")
-    return statistics.median(times)
+    for attempt in range(DEVICE_TRACES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        times = [evt.device_time_total / 1e3 for evt in prof.events()
+                 if evt.device_type == torch.autograd.DeviceType.CUDA
+                 and kernel in evt.name]
+        # the trace may drop events (an H100 once showed 18 of 20
+        # launches, and 5 of 20 of kernel E's 0.05-ms launches); more
+        # than asked for means another kernel matched
+        if iters // 2 <= len(times) <= iters:
+            return statistics.median(times)
+        print(f"    the profiler saw {len(times)} launches of {kernel}, "
+              f"not {iters} (trace {attempt + 1} of {DEVICE_TRACES})")
+    raise AssertionError(f"the profiler saw {len(times)} launches of "
+                         f"{kernel}, not {iters}")
 
 
 def check(name, got, ref, tol, failures):
@@ -442,6 +464,92 @@ def upsample_rows(torch, F, card, key, shapes, g, failures):
                 tot[k] += v
             tot["max_abs_err"] = max(tot["max_abs_err"], err)
         rows[(key, dt)] = dict(tot, bound_by="bytes")
+    return rows
+
+
+# kernel E at resnet50's layer1 for one net (64 images): a bottleneck's
+# last conv (256 channels, plus the block input, ReLU) and its inner
+# convs (64 channels, ReLU); its device time must stay within
+# BN_ACT_BOUND_RATIO times its byte bound
+BN_ACT_SHAPES = (((64, 64, 64, 256), True), ((64, 64, 64, 64), False))
+BN_ACT_BOUND_RATIO = 1.5
+
+
+def bn_act_rows(torch, card, g, failures):
+    """Kernel E against the plain sequence at `BN_ACT_SHAPES` in f32 and
+    bf16 (its resources and grid, the faulty controls, times, the device
+    time of a launch, the bytes bound); rows {("bn_act", dtype): sums
+    over the shapes}."""
+    from egotap_tpu_torch.ops import bn_act as E
+    rows = {}
+    for dt in (torch.float32, torch.bfloat16):
+        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+               "device_ms": 0.0, "max_abs_err": 0.0}
+        for shp, residual in BN_ACT_SHAPES:
+            c = shp[-1]
+            res = E.kernel_resources(dt, int(residual), math.prod(shp), c)
+            print(f"  bn_act {dt} kernel at {shp}: {res['registers']} "
+                  f"registers, {res['local_bytes']} local bytes a thread; "
+                  f"{res['blocks_per_sm']} blocks of {res['threads']} "
+                  f"threads fit one SM; grid {res['grid']}")
+            if res["blocks_per_sm"] < 1 or res["local_bytes"]:
+                raise AssertionError(f"{dt} bn_act kernel resources: {res}")
+            bn = torch.nn.BatchNorm2d(c, eps=E.BN_EPS).cuda().eval()
+            bn.requires_grad_(False)
+            with torch.no_grad():
+                bn.running_mean.normal_(0.0, 0.5, generator=g)
+                bn.running_var.uniform_(0.05, 4.0, generator=g)
+                bn.weight.normal_(1.0, 0.3, generator=g)
+                bn.bias.normal_(0.0, 0.5, generator=g)
+            x = torch.randn(shp, generator=g, device="cuda").to(dt)
+            r = torch.randn(shp, generator=g, device="cuda").to(dt) \
+                if residual else None
+            form = "+ block input, ReLU" if residual else "ReLU"
+            ref = E.bn_act_plain(x, bn, r)
+            err = check(f"bn_act {dt} {shp} BatchNorm {form}",
+                        E.bn_act(x, bn, r), ref, E.TOL[dt], failures)
+            # faults an output in the dtype shows: in f32 one FMA for
+            # (x - mean) * inv + bias (a 1-ulp change; in bf16 it rarely
+            # moves a rounding); in bf16 the product rounded to bf16
+            # before + bias, and the residual added before the
+            # BatchNorm's rounding
+            inv = torch.rsqrt(bn.running_var + E.BN_EPS) * bn.weight
+            centred = x.float() - bn.running_mean
+            if dt == torch.float32:
+                faulty = (centred.double() * inv.double()
+                          + bn.bias.double()).float()
+                control("(x - mean) * inv + bias as one FMA",
+                        torch.relu(faulty if r is None else faulty + r),
+                        ref, E.TOL[dt], failures)
+            else:
+                faulty = ((centred * inv).to(dt).float() + bn.bias).to(dt)
+                control("(x - mean) * inv rounded to bf16 before + bias",
+                        torch.relu(faulty if r is None else faulty + r),
+                        ref, E.TOL[dt], failures)
+                if residual:
+                    control("residual added before the BatchNorm's "
+                            "rounding", torch.relu(
+                                centred * inv + bn.bias + r.float()).to(dt),
+                            ref, E.TOL[dt], failures)
+            ms = time_ms(torch, lambda: E.bn_act(x, bn, r))
+            dms = device_ms(torch, lambda: E.bn_act(x, bn, r),
+                            "bn_act_kernel")
+            pms = time_ms(torch, lambda: E.bn_act_plain(x, bn, r))
+            nbytes = (3 if residual else 2) * x.numel() * x.element_size()
+            bound = 1e3 * nbytes / HBM_BYTES_PER_S
+            print(f"    {shp}: kernel {ms:.4f} ms (its launch alone on the "
+                  f"device {dms:.4f} ms, {dms / bound:.2f} x the bound), "
+                  f"plain {pms:.4f} ms, bound {bound:.4f} ms (bytes: x"
+                  f"{', the residual' if residual else ''} read once, the "
+                  f"output written once) [{card}]")
+            if not dms <= BN_ACT_BOUND_RATIO * bound:
+                failures.append(f"bn_act {dt} {shp}: {dms / bound:.2f} x "
+                                f"its bound")
+            for k, v in (("ms", ms), ("plain_ms", pms), ("bound_ms", bound),
+                         ("device_ms", dms)):
+                tot[k] += v
+            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        rows[("bn_act", dt)] = dict(tot, library_ms=None, bound_by="bytes")
     return rows
 
 
@@ -704,6 +812,9 @@ def phase_kernels(torch, F, card):
             device_ms=dms,
             bound_ms=bound, max_abs_err=err,
             bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+    # ---- E: eval BatchNorm, residual add and ReLU at resnet50's layer1
+    rows.update(bn_act_rows(torch, card, g, failures))
     if failures:
         raise AssertionError(f"kernel checks failed: {failures}")
     return rows
@@ -727,10 +838,17 @@ def read_head_counts():
     return attention_launches_by_heads()
 
 
-# launches per Predictor forward, in every precision
+# kernel E's launches per eval-mode forward of one resnet18 trunk: each
+# BatchNorm (the stem's and two a basic block); an int8 trunk runs the
+# stem's alone (its basic blocks fold theirs)
+E_PER_NET = 17
+E_PER_INT8_NET = 1
+# launches per Predictor forward (the two resnet18 heatmap nets), in
+# every precision but kernel E's in int8 (`E_PER_INT8_NET` a net)
 PER_FORWARD = {"upsample": 6, "attention": 3, "pu_chain": 1,
                "attention_unpacked": 0, "fused_layer1": 0,
-               "pu_chain_backward": 0}
+               "pu_chain_backward": 0, "bn_act": 2 * E_PER_NET}
+PER_INT8_FORWARD = {**PER_FORWARD, "bn_act": 2 * E_PER_INT8_NET}
 
 
 def serve(torch, pred, rgb_dev, label, card, requests=3,
@@ -857,8 +975,8 @@ def phase_full_path(torch, card):
     print(f"  int8: Predictor built and calibrated in "
           f"{time.perf_counter() - t0:.2f} s, static scales: "
           f"{pred._has_static_scales()}")
-    launches["int8"], outputs["int8"] = serve(torch, pred, rgb_dev, "int8",
-                                              card)
+    launches["int8"], outputs["int8"] = serve(
+        torch, pred, rgb_dev, "int8", card, per_forward=PER_INT8_FORWARD)
     del pred
     dev, scale = max_dev(outputs["int8"], outputs["bf16"])
     print(f"  int8 vs bf16 pose on the card: max_abs_dev={dev:.3e} "
@@ -927,9 +1045,9 @@ def phase_entry_points(torch, card):
     print(f"  fused-layer1 encoder, one forward of {tuple(x.shape)} bf16: "
           f"launches {counts}")
     if counts != dict(PER_FORWARD, fused_layer1=1, upsample=0, attention=0,
-                      pu_chain=0):
-        raise AssertionError("the fused encoder must launch kernel D once "
-                             "and nothing else")
+                      pu_chain=0, bn_act=E_PER_INT8_NET):
+        raise AssertionError("the fused encoder must launch kernel D once, "
+                             "E once (the stem) and nothing else")
     for i in range(2, 6):
         a, b = got[i].float(), ref[i].float()
         rel = float((a - b).norm() / b.norm())
@@ -957,7 +1075,7 @@ def phase_entry_points(torch, card):
         print(f"  unpacked attention, one call of {tuple(q.shape)} {dt}: "
               f"launches {counts}")
         if counts != dict(PER_FORWARD, upsample=0, attention=0, pu_chain=0,
-                          attention_unpacked=1):
+                          attention_unpacked=1, bn_act=0):
             raise AssertionError("the unpacked wrapper must launch kernel B "
                                  "once")
         flat = [x.reshape(256, 576, 128) for x in (q, k, v)]
@@ -977,9 +1095,10 @@ TIMED_STEPS = 10
 # launches per training step: the frozen nets' decoders (A, 3 a net, no
 # gradient), the Grid-ViT's 3 blocks (B) and the PU chain (C) forward;
 # B's backward recomputes its plain version, C's is its reverse walk
+# (the frozen nets run train-mode BatchNorm in a training step: no E)
 PER_TRAIN_STEP = {"upsample": 6, "attention": 3, "pu_chain": 1,
                   "attention_unpacked": 0, "fused_layer1": 0,
-                  "pu_chain_backward": 1}
+                  "pu_chain_backward": 1, "bn_act": 0}
 # f32 step on the card vs on the CPU from the same weights and batch:
 # losses within TRAIN_LOSS_RTOL (cos_sim, a sum of 15 bone cosines that
 # cancels to near 0 at random weights, against its largest value), and
@@ -1368,9 +1487,9 @@ def phase_eval(torch, card):
     out = task.eval_step(prepared, batch)
     counts = read_counts()
     print(f"  launches in one eval step: {counts}")
-    if counts != PER_FORWARD:
-        raise AssertionError("the eval step must launch A, B and C as the "
-                             "serving forward does")
+    if counts != PER_INT8_FORWARD:
+        raise AssertionError("the eval step must launch A, B, C and E as "
+                             "the int8 serving forward does")
     pred = Predictor(cfg, state.frozen["heatmap"].state_dict(),
                      state.frozen["rot_heatmap"].state_dict(),
                      state.net.state_dict(), bf16=True, device="cuda")
@@ -1415,7 +1534,7 @@ STAGE1_PRESETS = ("unrealego_heatmap_joint", "unrealego_heatmap_limb")
 # forward; A's backward recomputes the plain version (profiler range)
 PER_TRAIN1_STEP = {"upsample": 3, "attention": 0, "pu_chain": 0,
                    "attention_unpacked": 0, "fused_layer1": 0,
-                   "pu_chain_backward": 0}
+                   "pu_chain_backward": 0, "bn_act": 0}
 # the targets rendered on the card vs on the CPU: the same operations on
 # both, f32 rounding apart; relative where a value exceeds 1 (pixel
 # lengths reach about 90, where one ulp is 7.6e-6)
@@ -1566,9 +1685,11 @@ def eval_card_vs_cpu(torch, state, feed, preset):
     got, want = (o["metrics"]["mse_heatmap"].cpu() for o in (out, ref))
     gap = float(((got - want).abs() / want.abs()).max())
     print(f"  f32 eval step, batch {got.shape[0]}: kernel A launches "
-          f"{counts['upsample']}, mse_heatmap mean {float(got.mean()):.6f}, "
-          f"card vs CPU {gap:.3e} relative (tol {EVAL_MSE_RTOL:.0e})")
-    if counts["upsample"] != 3 or not gap <= EVAL_MSE_RTOL:
+          f"{counts['upsample']}, E {counts['bn_act']}, mse_heatmap mean "
+          f"{float(got.mean()):.6f}, card vs CPU {gap:.3e} relative (tol "
+          f"{EVAL_MSE_RTOL:.0e})")
+    if counts["upsample"] != 3 or counts["bn_act"] != E_PER_NET \
+            or not gap <= EVAL_MSE_RTOL:
         raise AssertionError("stage-1 eval step: card and CPU disagree")
 
 
@@ -1676,6 +1797,11 @@ PER_UNIT = {"heatmap_shared": {"upsample": 3},
 # what a training step launches besides: C's backward in stage 2
 PER_STEP_BACKWARD = {"heatmap_shared": {},
                      "egotap_autoencoder": {"pu_chain_backward": 1}}
+# what an eval batch launches besides: E in the eval-mode trunks (one
+# resnet18 net in stage 1, the two frozen ones in stage 2; a training
+# step's BatchNorms run in train mode)
+PER_EVAL_BATCH = {"heatmap_shared": {"bn_act": E_PER_NET},
+                  "egotap_autoencoder": {"bn_act": 2 * E_PER_NET}}
 # ckpt_best reloaded into a fresh f32 template: its pose on the test
 # split's first batch against pred_pose.npy's rows, relative to their max
 RELOAD_TOL = 1e-6
@@ -1720,15 +1846,20 @@ def state_tensors(state):
     return out
 
 
-def cli_units(cfg, make_loader, epochs):
-    """Training steps and eval batches of one run: the training epochs
-    (with a validation each), the test split and its motion categories."""
+def cli_eval_batches(cfg, make_loader, epochs):
+    """Eval batches of one run: a validation each training epoch, the
+    test split and its motion categories."""
     from egotap_tpu_torch.eval.categories import MOTION_CATEGORIES
-    return (epochs * (len(make_loader(cfg, "train"))
-                      + len(make_loader(cfg, "validation")))
+    return (epochs * len(make_loader(cfg, "validation"))
             + len(make_loader(cfg, "test"))
             + sum(len(make_loader(cfg, "test", c))
                   for c in MOTION_CATEGORIES))
+
+
+def cli_units(cfg, make_loader, epochs):
+    """Training steps and eval batches of one run (`cli_eval_batches`)."""
+    return (epochs * len(make_loader(cfg, "train"))
+            + cli_eval_batches(cfg, make_loader, epochs))
 
 
 def check_run_artifacts(cfg, epochs=2):
@@ -1823,7 +1954,9 @@ def phase_cli(torch, card, tmp, device=None, image_size=64,
               f"(batch {cfg.batch_size})")
         expect_counts(counts, PER_UNIT[cfg.model], units, preset, device,
                       PER_STEP_BACKWARD[cfg.model],
-                      2 * len(make_loader(cfg, "train")))
+                      2 * len(make_loader(cfg, "train")),
+                      PER_EVAL_BATCH[cfg.model],
+                      cli_eval_batches(cfg, make_loader, 2))
         epochs = check_run_artifacts(cfg)
         for e, t in sorted(epochs.items()):
             print(f"    epoch {e}: {t['epoch_s']:.3f} s = step loop "
@@ -1864,7 +1997,8 @@ def phase_cli(torch, card, tmp, device=None, image_size=64,
     print(f"  cli.test: returned after {wall:.2f} s; launches {counts} "
           f"over {units} eval batches; evaluate {pps:.1f} pairs/s "
           f"(f32, batch {cfg.batch_size}, {timed}) [{card}]")
-    expect_counts(counts, PER_UNIT[cfg.model], units, "cli.test", device)
+    expect_counts(counts, PER_UNIT[cfg.model], units, "cli.test", device,
+                  per_eval=PER_EVAL_BATCH[cfg.model], evals=units)
     res = cfg.results_dir
     n = 2 * frames
     detail = open(os.path.join(res, "detail_result.txt")).read()
@@ -1882,13 +2016,14 @@ def phase_cli(torch, card, tmp, device=None, image_size=64,
 
 
 def expect_counts(counts, per_unit, units, label, device, per_step=None,
-                  steps=0):
+                  steps=0, per_eval=None, evals=0):
     """Each kernel of the path launched once per unit where its count
-    says, plus ``per_step`` once per training step of the ``units``, none
-    other (the CPU rehearsal launches nothing)."""
-    per_step = per_step or {}
+    says, plus ``per_step`` once per training step and ``per_eval`` once
+    per eval batch of the ``units``, none other (the CPU rehearsal
+    launches nothing)."""
+    per_step, per_eval = per_step or {}, per_eval or {}
     want = {k: per_unit.get(k, 0) * units + per_step.get(k, 0) * steps
-            for k in counts}
+            + per_eval.get(k, 0) * evals for k in counts}
     if device != "cpu" and counts != want:
         raise AssertionError(f"{label}: launches {counts}, expected {want}")
 
@@ -2227,7 +2362,10 @@ def variant_cli(torch, card, tmp):
     print(f"  cli.train {' '.join(CLI_VARIANT[:6])}: returned after "
           f"{wall:.2f} s; launches {counts} over {units} training steps and "
           f"eval batches; epoch losses {[r[1] for r in reports]}")
-    expect_counts(counts, per_unit, units, "cli.train (LSTM, DAdam)", None)
+    expect_counts(counts, per_unit, units, "cli.train (LSTM, DAdam)", None,
+                  per_eval=PER_EVAL_BATCH[cfg.model],
+                  evals=cli_eval_batches(cfg, make_loader,
+                                         CLI_VARIANT_EPOCHS))
     if len(reports) != CLI_VARIANT_EPOCHS or any(
             bad for bad, _ in reports) or not losses \
             or not all(math.isfinite(v) for v in losses):
@@ -2251,7 +2389,8 @@ def variant_cli(torch, card, tmp):
     units = cli_units(cfg, make_loader, 0)
     print(f"  cli.test: returned after {wall:.2f} s; launches {test_counts} "
           f"over {units} eval batches; evaluate {pps:.1f} pairs/s [{card}]")
-    expect_counts(test_counts, per_unit, units, "cli.test (LSTM)", None)
+    expect_counts(test_counts, per_unit, units, "cli.test (LSTM)", None,
+                  per_eval=PER_EVAL_BATCH[cfg.model], evals=units)
     pred = np.load(os.path.join(cfg.results_dir, "pred_pose.npy"))
     if pred.shape != (2 * CLI_FRAMES, 16, 3) or not np.isfinite(pred).all():
         raise AssertionError(f"cli.test (LSTM): pose {pred.shape}")
@@ -2299,7 +2438,10 @@ TP_DATA, TP_MODEL = 2, 2
 PER_TP_FORWARD = {"upsample": 6 * TP_DATA,
                   "attention": 3 * TP_MODEL * TP_DATA,
                   "pu_chain": TP_DATA, "attention_unpacked": 0,
-                  "fused_layer1": 0, "pu_chain_backward": 0}
+                  "fused_layer1": 0, "pu_chain_backward": 0,
+                  "bn_act": PER_FORWARD["bn_act"] * TP_DATA}
+PER_TP_INT8_FORWARD = {**PER_TP_FORWARD,
+                       "bn_act": PER_INT8_FORWARD["bn_act"] * TP_DATA}
 # sharded against unsharded pose, relative to max: f32 (row-parallel
 # partial sums in another order), then phase 3's bf16 and int8 budgets
 SHARD_TOL = {"f32": 1e-5, "bf16": BF16_POSE_TOL, "int8": INT8_POSE_TOL}
@@ -2702,7 +2844,10 @@ def phase_data_parallel(torch, card, tmp, cli_tmp):
     expect_counts(ranks[0]["launches"], PER_UNIT[cfg.model],
                   cli_units(cfg, shard, 1) + cli_units(cfg, shard, 0),
                   "2-rank cli.train + cli.test, rank 0", None,
-                  PER_STEP_BACKWARD[cfg.model], len(shard(cfg, "train")))
+                  PER_STEP_BACKWARD[cfg.model], len(shard(cfg, "train")),
+                  PER_EVAL_BATCH[cfg.model],
+                  cli_eval_batches(cfg, shard, 1)
+                  + cli_eval_batches(cfg, shard, 0))
     one, _ = cli_test.main(argv)
     worst = max(abs(ranks[0]["metrics"][k] - v) / abs(v)
                 for k, v in one.items())
@@ -2784,10 +2929,12 @@ def phase_sharded_serving(torch, F, card):
         got = pred(rgb)
         counts[label], heads[label] = read_counts(), read_head_counts()
         want_heads = {8 // TP_MODEL: PER_TP_FORWARD["attention"]}
-        if counts[label] != PER_TP_FORWARD or heads[label] != want_heads:
+        per_forward = (PER_TP_INT8_FORWARD if label == "int8"
+                       else PER_TP_FORWARD)
+        if counts[label] != per_forward or heads[label] != want_heads:
             raise AssertionError(
                 f"sharded {label}: launches {counts[label]}, kernel B by "
-                f"heads {heads[label]}, expected {PER_TP_FORWARD}, "
+                f"heads {heads[label]}, expected {per_forward}, "
                 f"{want_heads}")
         ragged = pred(rgb[:31])
         err, scale = max_dev(got, want)
@@ -2849,9 +2996,12 @@ HEATMAP_CPU_TOL = 1e-4
 FUSED_ATOL_F32, FUSED_TOL_BF16 = 2e-4, 2e-2
 # launches per fused forward: kernel A's three decoder calls (one grouped
 # decoder for both nets)
+# kernel E a forward of the Bottleneck nets (both trunks: the stem's and
+# three a bottleneck, in int8 too)
+E_PER_BOTTLENECK_FORWARD = {"resnet50": 2 * 49, "resnet101": 2 * 100}
 PER_FUSED_FORWARD = {"upsample": 3, "attention": 0, "pu_chain": 0,
                      "attention_unpacked": 0, "fused_layer1": 0,
-                     "pu_chain_backward": 0}
+                     "pu_chain_backward": 0, "bn_act": E_PER_NET}
 # the legacy encoder / decoder and the S2D-stem encoder, f32 card vs CPU,
 # relative to max|cpu| (phase 3's limit); the S2D stem vs the plain stem
 # of the same weight on the card (the same products, summed in another
@@ -2898,7 +3048,9 @@ def bottleneck_serving(torch, card):
               f"{time.perf_counter() - t0:.2f} s, heatmap nets "
               f"{params / 1e6:.1f}M parameters")
         launches[label], outputs[label] = serve(
-            torch, pred, rgb_dev, f"{name} {precision}", card)
+            torch, pred, rgb_dev, f"{name} {precision}", card,
+            per_forward=dict(PER_FORWARD,
+                             bn_act=E_PER_BOTTLENECK_FORWARD[name]))
         if label == "f32":
             got = pred.heatmaps(small.cuda())
             cpu_nets = [copy.deepcopy(n).cpu() for n in pred.nets[:2]]
@@ -3174,8 +3326,10 @@ def main() -> int:
     # the entry points' own calls for kernel D and the unpacked wrapper
     launches = {(n, torch.bfloat16): c for n, c in served["int8"].items()
                 if n != "pu_chain_backward"}     # in C's rows (phase 5)
-    for n in ("attention", "pu_chain"):
+    for n in ("attention", "pu_chain", "bn_act"):
         launches[(n, torch.float32)] = served["f32"][n]
+    # kernel E: the bf16 forward's (the int8 one runs the stems' alone)
+    launches[("bn_act", torch.bfloat16)] = served["bf16"]["bn_act"]
     launches[("fused_layer1", torch.bfloat16)] = fused
     for dt, c in unpacked.items():
         launches[("attention_unpacked", dt)] = c
@@ -3216,6 +3370,8 @@ def main() -> int:
         "fused_layer1": ("fused_layer1_int8", "cuda",
                          "egotap_tpu_torch/csrc/fused_layer1.cu",
                          "egotap_tpu/ops/fused_layer1.py:121"),
+        "bn_act": ("bn_act", "cuda", "egotap_tpu_torch/csrc/bn_act.cu",
+                   "none (XLA fuses the eval BatchNorm, add and ReLU)"),
     }
     kernels = []
     for (key, dt), count in launches.items():
@@ -3231,6 +3387,12 @@ def main() -> int:
         for extra in ("unfused_ms", "device_ms", "latency_floor_ms"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
+        if key == "bn_act":
+            label = "bf16" if dt == torch.bfloat16 else "f32"
+            if dt == torch.bfloat16:
+                kernels[-1]["int8_serve_launches"] = served["int8"][key]
+            kernels[-1]["resnet50_serve_launches"] = \
+                bottleneck["serving"][label][key]
         # the training step (bf16) and the eval step run the bf16 kernels
         # (B at 8 heads)
         if dt == torch.bfloat16 and key != "attention_tp":
@@ -3247,7 +3409,9 @@ def main() -> int:
             kernels[-1]["dp_train_step_backward_launches"] = \
                 dp[dt]["launches"]["pu_chain_backward"]
         # the CLI runs of phase 8 (training in bf16, cli.test in f32)
-        if dt == torch.bfloat16 and key in PER_UNIT["egotap_autoencoder"]:
+        if dt == torch.bfloat16 and (
+                key in PER_UNIT["egotap_autoencoder"]
+                or key in PER_EVAL_BATCH["egotap_autoencoder"]):
             kernels[-1]["cli_launches"] = {run: c[key]
                                            for run, c in cli.items()}
         # phase 9: the LSTM lifter's training step (bf16) and its CLI runs

@@ -18,7 +18,8 @@ f32 and cast back. With ``quant`` the conv is a `QConv` and the Linear a
 `QDense` (int8 inference, `ops/quant.py`), with the same keys.
 
 BatchNorm follows the module's ``training`` flag, as torch's does:
-`batch_norm_eval` normalises with the running statistics,
+`batch_norm_eval` (`ops/bn_act.py`, the plain twin of kernel E)
+normalises with the running statistics,
 `batch_norm_train` with the batch's and updates the running ones
 (`egotap_tpu/models/layers.py:TorchBatchNorm`). Inside
 `global_batch_statistics(dp)` the batch statistics of a train-mode
@@ -38,9 +39,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from egotap_tpu_torch.ops.bn_act import BN_EPS, batch_norm_eval
 from egotap_tpu_torch.ops.quant import QConv, QDense
 
-BN_EPS = 1e-5
 BN_MOMENTUM = 0.1          # torch momentum (flax decay 0.9)
 LEAKY_SLOPE = 0.2
 _RANKS = None              # the `global_batch_statistics` process group
@@ -79,15 +80,6 @@ def conv_nhwc(x: torch.Tensor, mod: nn.Conv2d) -> torch.Tensor:
     y = F.conv2d(x.permute(0, 3, 1, 2), mod.weight.to(x.dtype), b,
                  mod.stride, mod.padding, groups=mod.groups)
     return y.permute(0, 2, 3, 1)
-
-
-def batch_norm_eval(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm
-                    ) -> torch.Tensor:
-    """Eval-mode BatchNorm over the last axis, in f32, cast back
-    (`egotap_tpu/models/layers.py:TorchBatchNorm`, running averages)."""
-    inv = torch.rsqrt(bn.running_var.float() + BN_EPS) * bn.weight.float()
-    y = (x.float() - bn.running_mean.float()) * inv + bn.bias.float()
-    return y.to(x.dtype)
 
 
 def batch_norm_train(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm,

@@ -36,6 +36,11 @@ int8 (``quant``, `egotap_tpu/models/resnet.py`):
 Training mode: BatchNorm takes batch statistics, per view with
 ``bn_views`` V (row i of the folded batch is view i % V,
 `models/layers.py:batch_norm_train`), also with ``quant``.
+
+Eval mode (except the folded int8 `BasicBlock`): each BatchNorm, with
+the ReLU after it and, at a block's end, the residual (the block input,
+or the downsample conv through its BatchNorm), is one `ops.bn_act.bn_act`
+call: kernel E on the card, the plain sequence on the CPU.
 """
 
 from __future__ import annotations
@@ -46,7 +51,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from egotap_tpu_torch.models.layers import BN_EPS, batch_norm, conv_nhwc
+from egotap_tpu_torch.models.layers import (BN_EPS, batch_norm_train,
+                                            conv_nhwc)
+from egotap_tpu_torch.ops.bn_act import bn_act
 from egotap_tpu_torch.ops.fused_layer1 import (fold_bn, fused_layer1_int8,
                                                pack_blocks)
 from egotap_tpu_torch.ops.quant import (QConv, WeightCache, conv_nhwc_float,
@@ -109,18 +116,32 @@ class _Block(nn.Module):
                 _conv(cin, cout, 1, stride, groups, quant),
                 nn.BatchNorm2d(cout, eps=BN_EPS))
 
-    def _bn(self, y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
-        return batch_norm(y, bn, self.training, self.bn_views)
-
     def _unit(self, x: torch.Tensor, conv: nn.Conv2d,
               bn: nn.BatchNorm2d) -> torch.Tensor:
-        return self._bn(_apply(x, conv), bn)
+        """``bn`` on ``conv`` of x, then ReLU."""
+        y = _apply(x, conv)
+        if not self.training:
+            return bn_act(y, bn)
+        return torch.relu(batch_norm_train(y, bn, self.bn_views))
 
-    def _residual(self, x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    def _last_unit(self, x: torch.Tensor, out: torch.Tensor,
+                   conv: nn.Conv2d, bn: nn.BatchNorm2d) -> torch.Tensor:
+        """The block's output: ``bn`` on ``conv`` of ``out``, plus the
+        residual of the block input x (x itself, or the downsample conv
+        through its BatchNorm), then ReLU."""
+        y = _apply(out, conv)
+        if not self.training:
+            if self.downsample is None:
+                return bn_act(y, bn, x)
+            conv_d, bn_d = self.downsample
+            return bn_act(y, bn, _apply(x, conv_d), bn_d)
+        y = batch_norm_train(y, bn, self.bn_views)
         identity = x
         if self.downsample is not None:
-            identity = self._unit(x, *self.downsample)
-        return torch.relu(out + identity)
+            conv_d, bn_d = self.downsample
+            identity = batch_norm_train(_apply(x, conv_d), bn_d,
+                                        self.bn_views)
+        return torch.relu(y + identity)
 
 
 class BasicBlock(_Block):
@@ -177,8 +198,8 @@ class BasicBlock(_Block):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.quant and not self.training:
             return self._folded_inference(x)
-        out = torch.relu(self._unit(x, self.conv1, self.bn1))
-        return self._residual(x, self._unit(out, self.conv2, self.bn2))
+        out = self._unit(x, self.conv1, self.bn1)
+        return self._last_unit(x, out, self.conv2, self.bn2)
 
 
 class Bottleneck(_Block):
@@ -203,9 +224,9 @@ class Bottleneck(_Block):
         self._downsample(cin, out, stride, groups, q)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = torch.relu(self._unit(x, self.conv1, self.bn1))
-        out = torch.relu(self._unit(out, self.conv2, self.bn2))
-        return self._residual(x, self._unit(out, self.conv3, self.bn3))
+        out = self._unit(x, self.conv1, self.bn1)
+        out = self._unit(out, self.conv2, self.bn2)
+        return self._last_unit(x, out, self.conv3, self.bn3)
 
 
 def _fold(conv: nn.Conv2d, bn: nn.BatchNorm2d):
@@ -312,8 +333,12 @@ class ResNetEncoder(WeightCache, nn.Module):
         return conv_nhwc(x, self.conv1)
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        layer0 = torch.relu(batch_norm(self._stem(x), self.bn1,
-                                       self.training, self.bn_views))
+        stem = self._stem(x)
+        if self.training:
+            layer0 = torch.relu(batch_norm_train(stem, self.bn1,
+                                                 self.bn_views))
+        else:
+            layer0 = bn_act(stem, self.bn1)
         out = max_pool_nhwc(layer0)
         feats = []
         for li in range(1, 5):

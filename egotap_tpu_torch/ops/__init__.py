@@ -13,7 +13,9 @@ over the plain version, recomputed from the saved inputs (`plain_vjp`);
 C's is a kernel of its own (`pu_kernel._KernelC`). Kernel D (int8
 inference) has no backward: its wrapper refuses inputs that need a
 gradient (`refuse_grad`) instead of returning an output cut off from
-autograd. On the CPU the plain versions differentiate.
+autograd. On the CPU the plain versions differentiate. Kernel E (eval
+BatchNorm, residual add and ReLU) is the forward of `bn_act._KernelE`
+when a gradient is asked for; its backward, as A's, is `plain_vjp`.
 """
 
 from __future__ import annotations
@@ -68,13 +70,14 @@ def launch_counts(reset: bool = False) -> dict:
     """Each kernel wrapper's count of its launches, by kernel, and kernel
     C's backward launches as ``pu_chain_backward`` (zeroed first with
     ``reset``)."""
-    from egotap_tpu_torch.ops import (attention, fused_layer1, pu_kernel,
-                                      upsample)
+    from egotap_tpu_torch.ops import (attention, bn_act, fused_layer1,
+                                      pu_kernel, upsample)
     wrappers = {"upsample": upsample.upsample2x_align_corners,
                 "attention": attention.multihead_attention_packed,
                 "pu_chain": pu_kernel.pu_chain_fused,
                 "attention_unpacked": attention.multihead_attention,
-                "fused_layer1": fused_layer1.fused_layer1_int8}
+                "fused_layer1": fused_layer1.fused_layer1_int8,
+                "bn_act": bn_act.bn_act}
     if reset:
         for w in wrappers.values():
             w.launches = 0

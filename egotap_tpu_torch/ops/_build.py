@@ -8,7 +8,8 @@ and the flags, so an edited source rebuilds and an unchanged one is
 reused. `build_all` starts one ``nvcc`` per source, all at once.
 
 Every C entry point takes device pointers and the stream as
-``c_void_p``, ints as ``c_int``, launches on that stream and returns
+``c_void_p``, ints as ``c_int`` (an element count as ``c_longlong``,
+a float as ``c_float``), launches on that stream and returns
 ``cudaGetLastError()``; `check` raises when it is not 0.
 """
 
@@ -30,6 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # argtypes of each library's C entry points
 _VP, _I = ctypes.c_void_p, ctypes.c_int
+_L, _F = ctypes.c_longlong, ctypes.c_float
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "upsample": {"egotap_upsample2x": [_VP] * 4 + [_I] * 8 + [_VP],
                  "egotap_upsample2x_occupancy": [_I, _I, _VP]},
@@ -43,6 +45,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                  "egotap_pu_chain_backward_occupancy": [_I] * 5 + [_VP]},
     "fused_layer1": {"egotap_fused_layer1": [_VP] * 5 + [_I] * 8 + [_VP],
                      "egotap_fused_layer1_occupancy": [_I] * 5 + [_VP]},
+    "bn_act": {"egotap_bn_act": [_VP] * 11 + [_L] + [_I] * 3 + [_F, _VP],
+               "egotap_bn_act_occupancy": [_I] * 2 + [_L, _I, _VP]},
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

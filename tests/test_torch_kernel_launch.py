@@ -1,4 +1,4 @@
-"""What the kernel wrappers of kernels A, B, C and D check and pass on
+"""What the kernel wrappers of kernels A to E check and pass on
 before they launch, on the CPU: the libraries are replaced by a recorder
 and the tensors live on the ``meta`` device (no data, but not the CPU, so
 the wrappers take their kernel path), so no kernel runs. The kernels
@@ -10,10 +10,13 @@ import torch
 
 from egotap_tpu_torch.ops import (_build, attention_launches_by_heads,
                                   launch_counts)
+from egotap_tpu_torch.models import resnet
 from egotap_tpu_torch.ops import attention as att
+from egotap_tpu_torch.ops import bn_act as E
 from egotap_tpu_torch.ops import fused_layer1 as fl
 from egotap_tpu_torch.ops import pu_kernel
 from egotap_tpu_torch.ops import upsample as up
+from egotap_tpu_torch.utils import profiling
 from tests.test_torch_attention_launch import FakeLibrary
 
 H100 = (132, 232448)             # SMs, shared memory a block may opt in to
@@ -46,6 +49,10 @@ class Recorder(FakeLibrary):
         self.calls.append(("fused_layer1", args))
         return 0
 
+    def egotap_bn_act(self, *args):
+        self.calls.append(("bn_act", args))
+        return 0
+
 
 @pytest.fixture
 def fake(monkeypatch):
@@ -74,6 +81,12 @@ def _layer1_args(n_convs=4):
             _meta(n_convs, 64), _meta(n_convs, 64)]
 
 
+def _bn(c, device="meta"):
+    """An eval-mode BatchNorm2d of c channels whose parameters require no
+    grad (a frozen or served net's)."""
+    return torch.nn.BatchNorm2d(c, device=device).eval().requires_grad_(False)
+
+
 def _call(which):
     """(wrapper, its inputs that may require grad, a call of it)."""
     if which in ("attention", "attention_unpacked"):
@@ -88,6 +101,10 @@ def _call(which):
         x = _meta(1, 4, 4, 8, dtype=torch.bfloat16)
         return (up.upsample2x_align_corners, [x],
                 lambda: up.upsample2x_align_corners(x))
+    if which == "bn_act":
+        x, r = (_meta(2, 4, 4, 64, dtype=torch.bfloat16) for _ in range(2))
+        bn, bn_r = _bn(64), _bn(64)
+        return E.bn_act, [x, r], lambda: E.bn_act(x, bn, r, bn_r)
     if which == "fused_layer1":
         x = _meta(2, 8, 8, 64, dtype=torch.bfloat16)
         packed = _layer1_args()
@@ -100,10 +117,12 @@ def _call(which):
 
 
 WRAPPERS = ["attention", "attention_unpacked", "upsample", "pu_chain",
-            "fused_layer1"]
-DIFFERENTIABLE = ["attention", "attention_unpacked", "upsample", "pu_chain"]
+            "fused_layer1", "bn_act"]
+DIFFERENTIABLE = ["attention", "attention_unpacked", "upsample", "pu_chain",
+                  "bn_act"]
 KERNEL_FUNCTION = {"attention": "_KernelB", "attention_unpacked": "_KernelB",
-                   "upsample": "_KernelA", "pu_chain": "_KernelC"}
+                   "upsample": "_KernelA", "pu_chain": "_KernelC",
+                   "bn_act": "_KernelE"}
 
 
 @pytest.mark.parametrize("which", ["fused_layer1"])
@@ -123,10 +142,10 @@ def test_refuses_inputs_that_require_grad(fake, which):
 
 @pytest.mark.parametrize("which", DIFFERENTIABLE)
 def test_launches_under_grad(fake, which):
-    """Kernels A, B and C are the forward of an autograd function: with
+    """Kernels A, B, C and E are the forward of an autograd function: with
     an input that requires grad they launch once, counted once, and
     return an output whose grad_fn is that function (its backward:
-    `tests/test_torch_grad.py`)."""
+    `tests/test_torch_grad.py`; E's below)."""
     wrapper, leaves, call = _call(which)
     for leaf in leaves:
         before = wrapper.launches
@@ -331,3 +350,157 @@ def test_fused_layer1_refusals_launch_nothing(fake):
     with pytest.raises(ValueError):                          # odd convs
         fl.fused_layer1_int8(_meta(1, 8, 8, 64), *_layer1_args(n_convs=3))
     assert not fake.calls
+
+
+@pytest.mark.parametrize("dtype,code", [(torch.float32, 0),
+                                        (torch.bfloat16, 1)])
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_bn_act_launch_arguments(fake, dtype, code, mode):
+    """Kernel E gets x, the residual (None without one), the output, the
+    four vectors of each BatchNorm (None for a residual without one), the
+    element count, C, the dtype code, the residual form (0 none, 1 the
+    block input, 2 through its own BatchNorm) and eps, and returns an
+    output of x's shape and dtype."""
+    x, r = (_meta(2, 3, 5, 128, dtype=dtype) for _ in range(2))
+    residual = r if mode else None
+    residual_bn = _bn(128) if mode == 2 else None
+    out = E.bn_act(x, _bn(128), residual, residual_bn)
+    assert out.shape == x.shape and out.dtype == dtype
+    ((name, args),) = fake.calls
+    assert name == "bn_act" and len(args) == 17
+    assert args[1] is (None if mode == 0 else 0)
+    assert (args[7] is None) == (mode != 2)
+    assert args[11:16] == (x.numel(), 128, code, mode, E.BN_EPS)
+
+
+def test_bn_act_copies_what_it_cannot_read(fake):
+    """Kernel E takes a non-contiguous x or residual as a contiguous copy
+    (as kernel A does) and launches on it; each launch counts
+    ``bn.fused`` under the request's root span, as the other counters."""
+    bn = _bn(64)
+    x = _meta(2, 4, 4, 64, dtype=torch.bfloat16)
+    profiling.reset()
+    profiling.enable()
+    try:
+        with profiling.span("serve.request", root=7):
+            out = E.bn_act(x.transpose(1, 2), bn)
+            E.bn_act(x, bn, x.transpose(1, 2))
+        counts = profiling.counters()
+    finally:
+        profiling.disable()
+        profiling.reset()
+    assert out.is_contiguous() and out.shape == (2, 4, 4, 64)
+    assert counts == {"serve.request": {"bn.fused": 2}}
+    assert [name for name, _ in fake.calls] == ["bn_act", "bn_act"]
+
+
+def test_bn_act_refusals_launch_nothing(fake):
+    """Off the CPU `bn_act` raises for what kernel E does not cover, and
+    runs no plain sequence in its place: C not a multiple of the vector
+    or not the BatchNorm's, float16 and float64, a residual of another
+    shape, BatchNorm vectors in another dtype or on another device."""
+    x = _meta(2, 4, 4, 64)
+    before = E.bn_act.launches
+    cases = [(_meta(2, 4, 4, 12, dtype=torch.bfloat16), _bn(12), {},
+              "multiple of 8"),
+             (x, _bn(32), {}, "not f32 \\(64,\\)"),
+             (x.half(), _bn(64), {}, "dtype"),
+             (x.double(), _bn(64), {}, "dtype"),
+             (x, _bn(64), {"residual": _meta(2, 4, 4, 128)}, "residual"),
+             (x, _bn(64).double(), {}, "not f32"),
+             (x, _bn(64, "cpu"), {}, "on cpu")]
+    for inp, norm, kw, match in cases:
+        with pytest.raises(NotImplementedError, match=match):
+            E.bn_act(inp, norm, **kw)
+    assert not fake.calls and E.bn_act.launches == before
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_bn_act_backward_is_the_plain_sequences(monkeypatch, mode):
+    """With a gradient asked for, `bn_act` is the forward of `_KernelE`
+    (here its launch played by the plain sequence): the gradients of x,
+    the residual and both BatchNorms' weight and bias are autograd's over
+    `bn_act_plain`, bit for bit; the running statistics get none."""
+    monkeypatch.setattr(E, "_launch",
+                        lambda x, r, vectors: E._plain(x, r, *vectors))
+    g = torch.Generator().manual_seed(mode)
+    bn, bn_r = (torch.nn.BatchNorm2d(16).eval() for _ in range(2))
+    for norm in (bn, bn_r):
+        for t in E.stats(norm):
+            t.data = torch.rand(16, generator=g) + 0.5
+    x, r = (torch.randn(2, 3, 3, 16, generator=g, requires_grad=True)
+            for _ in range(2))
+    r = r if mode else None
+    bn_r = bn_r if mode == 2 else None
+    vectors = E.stats(bn) + (E.stats(bn_r) if mode == 2 else ())
+    leaves = [x, bn.weight, bn.bias] + ([r] if mode else []) + (
+        [bn_r.weight, bn_r.bias] if mode == 2 else [])
+    out = E._KernelE.apply(x, r, *vectors)
+    assert type(out.grad_fn).__name__ == "_KernelEBackward"
+    got = torch.autograd.grad(out.square().sum(), leaves)
+    want = torch.autograd.grad(
+        E.bn_act_plain(x, bn, r, bn_r).square().sum(), leaves)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("model,fused,blocks,downsamples", [
+    ("resnet18", 17, 8, 3), ("resnet50", 49, 16, 4)])
+def test_bn_act_trunk_sites(fake, model, fused, blocks, downsamples):
+    """Every BatchNorm site of an eval trunk (the stem; conv1 and conv2 of
+    a basic block, conv1 to conv3 of a bottleneck; a downsample's
+    BatchNorm inside its block's last call) is one kernel E call under
+    the request's root span: 17 a resnet18 trunk, 49 a resnet50 one, in
+    the residual forms its blocks have; a trunk in training mode calls
+    none."""
+    with torch.device("meta"):
+        net = resnet.ResNetEncoder(model).eval().requires_grad_(False)
+    x = _meta(2, 64, 64, 3, dtype=torch.bfloat16)
+    profiling.reset()
+    profiling.enable()
+    try:
+        with profiling.span("serve.request", root=0):
+            net(x)
+        counts = profiling.counters()
+    finally:
+        profiling.disable()
+        profiling.reset()
+    assert counts == {"serve.request": {"bn.fused": fused}}
+    modes = [args[14] for _, args in fake.calls]
+    assert modes.count(2) == downsamples
+    assert modes.count(1) == blocks - downsamples
+    fake.calls.clear()
+    net.train()
+    net(x)
+    assert not fake.calls
+
+
+def test_eval_trunk_on_cpu_is_the_plain_sequence():
+    """On the CPU the eval trunk takes the plain sequence and counts
+    nothing: a block with a downsample equals the steps written out
+    (BatchNorm, ReLU; BatchNorm plus the downsample's BatchNorm, ReLU)."""
+    g = torch.Generator().manual_seed(0)
+    block = resnet.BasicBlock(64, 128, stride=2).eval()
+    for bn in (block.bn1, block.bn2, block.downsample[1]):
+        for t in (bn.running_mean, bn.running_var, bn.weight, bn.bias):
+            t.data = torch.rand(t.shape, generator=g) + 0.5
+    x = torch.randn(2, 8, 8, 64, generator=g).to(torch.bfloat16)
+    before = E.bn_act.launches
+    profiling.reset()
+    profiling.enable()
+    try:
+        with torch.no_grad(), profiling.span("serve.request", root=0):
+            got = block(x)
+        counts = profiling.counters()
+    finally:
+        profiling.disable()
+        profiling.reset()
+    assert counts == {} and E.bn_act.launches == before
+    with torch.no_grad():
+        out = torch.relu(E.batch_norm_eval(
+            resnet.conv_nhwc(x, block.conv1), block.bn1))
+        out = E.batch_norm_eval(resnet.conv_nhwc(out, block.conv2), block.bn2)
+        identity = E.batch_norm_eval(
+            resnet.conv_nhwc(x, block.downsample[0]), block.downsample[1])
+        want = torch.relu(out + identity)
+    assert torch.equal(got, want)

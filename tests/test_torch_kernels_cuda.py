@@ -12,11 +12,13 @@ import torch
 
 from egotap_tpu_torch.models.resnet import BasicBlock
 from egotap_tpu_torch.ops import attention as att
+from egotap_tpu_torch.ops import bn_act as E
 from egotap_tpu_torch.ops import fused_layer1 as fl
 from egotap_tpu_torch.ops import attention_launches_by_heads, kernel_errors
 from egotap_tpu_torch.ops import pu_kernel
 from egotap_tpu_torch.ops import upsample as up
 from egotap_tpu_torch.serving import init_weights
+from egotap_tpu_torch.utils import profiling
 from pu_chain_schedule import schedule_vjp
 
 pytestmark = pytest.mark.cuda
@@ -673,3 +675,219 @@ def test_one_nccl_rank_step_equals_one_process(gen, tmp_path):
     for a, b in ((n1, n2), (f1, f2)):
         for k in a:
             assert torch.equal(a[k], b[k]), k
+
+
+# kernel E at every trunk shape of the resnet18 and resnet50 serving nets
+# (64 images: 32 stereo pairs), (N, H, W, C): the stem; layer1 to layer4
+# (resnet50: each bottleneck's 64-, 128-, 256- or 512-channel inner
+# convs, its 4x-wide last conv, and the first block's conv1 at the
+# stage's input grid); then the fused net's grouped widths (64 * 3
+# channels: 24 vectors a bf16 row, which 256 threads do not divide, and
+# resnet50's layer4 for two trunks: 1024 f32 vectors a row)
+BN_SHAPES = [(64, 128, 128, 64), (64, 64, 64, 64), (64, 32, 32, 128),
+             (64, 16, 16, 256), (64, 8, 8, 512),
+             (64, 64, 64, 256), (64, 64, 64, 128), (64, 32, 32, 512),
+             (64, 32, 32, 256), (64, 16, 16, 1024), (64, 16, 16, 512),
+             (64, 8, 8, 2048),
+             (8, 64, 64, 192), (8, 8, 8, 4096)]
+BN_FORMS = ["bn_relu", "identity_relu", "bn_residual_relu"]
+
+
+def _bn_module(c, gen):
+    """A BatchNorm2d on the card in eval mode, its parameters frozen, with
+    statistics far from the identity (var over three decades)."""
+    bn = torch.nn.BatchNorm2d(c, eps=E.BN_EPS).cuda().eval()
+    bn.requires_grad_(False)
+    with torch.no_grad():
+        bn.running_mean.normal_(0.0, 0.5, generator=gen)
+        bn.running_var.copy_(10 ** (3 * torch.rand(c, generator=gen,
+                                                   device="cuda") - 2))
+        bn.weight.normal_(1.0, 0.3, generator=gen)
+        bn.bias.normal_(0.0, 0.5, generator=gen)
+    return bn
+
+
+def _form(form, r, bn_r):
+    """(residual, residual_bn) of a form."""
+    return {"bn_relu": (None, None), "identity_relu": (r, None),
+            "bn_residual_relu": (r, bn_r)}[form]
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _bn_launch(x, bn, residual=None, residual_bn=None):
+    before = E.bn_act.launches
+    got = E.bn_act(x, bn, residual, residual_bn)
+    assert E.bn_act.launches == before + 1
+    return got
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", BN_SHAPES)
+def test_bn_act_matches_plain(gen, shape, dtype):
+    """Kernel E equals the plain sequence bit for bit in each of its three
+    forms: BatchNorm, ReLU; + the block input, ReLU; + a second
+    BatchNorm'd input, ReLU."""
+    dt = getattr(torch, dtype)
+    x, r = (torch.randn(shape, generator=gen, device="cuda").to(dt)
+            for _ in range(2))
+    bn, bn_r = _bn_module(shape[-1], gen), _bn_module(shape[-1], gen)
+    with torch.no_grad():
+        for form in BN_FORMS:
+            args = _form(form, r, bn_r)
+            got = _bn_launch(x, bn, *args)
+            want = E.bn_act_plain(x, bn, *args)
+            _close(got, want, E.TOL[dt])
+            assert torch.equal(_bits(got), _bits(want)), form
+
+
+def test_bn_act_every_root(gen):
+    """One row of 2^20 channels: the statistics of each channel, var over
+    twelve decades and below eps, give the plain sequence's inv (the
+    kernel's rsqrtf is PyTorch's). With no bias, the weight and its
+    negation put each channel's value on the positive side of the ReLU
+    once."""
+    c = 1 << 20
+    bn = _bn_module(c, gen)
+    with torch.no_grad():
+        bn.running_var.copy_(10 ** (12 * torch.rand(c, generator=gen,
+                                                    device="cuda") - 7))
+        bn.bias.zero_()
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(2, c, generator=gen, device="cuda").to(dt)
+            for _ in range(2):
+                bn.weight.neg_()
+                assert torch.equal(_bits(_bn_launch(x, bn)),
+                                   _bits(E.bn_act_plain(x, bn)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bn_act_controls_rejected(gen, dtype):
+    """Faults the bit-for-bit check must see, at resnet50's layer1 shape:
+    (x - mean) * inv + bias contracted into one FMA (the product exact in
+    f64, the sum rounded once) and, in bf16, the residual added to the
+    BatchNorm's f32 value before its rounding (in f32 that rounding is
+    none)."""
+    dt = getattr(torch, dtype)
+    shape = (64, 64, 64, 256)
+    x, r = (torch.randn(shape, generator=gen, device="cuda").to(dt)
+            for _ in range(2))
+    bn = _bn_module(shape[-1], gen)
+    with torch.no_grad():
+        inv = torch.rsqrt(bn.running_var + E.BN_EPS) * bn.weight
+        centred = x.float() - bn.running_mean
+        fma = (centred.double() * inv.double() + bn.bias.double()).float()
+        faults = {"contracted FMA": torch.relu(fma.to(dt) + r)}
+        if dt == torch.bfloat16:
+            faults["residual before rounding"] = torch.relu(
+                centred * inv + bn.bias + r.float()).to(dt)
+        got = _bn_launch(x, bn, r)
+        assert torch.equal(got, E.bn_act_plain(x, bn, r))
+        for name, fault in faults.items():
+            max_abs, _, _ = kernel_errors(got, fault)
+            assert max_abs > 0, name
+
+
+def test_bn_act_refusals(gen):
+    """On the card `bn_act` raises for C not a multiple of the vector or
+    not the BatchNorm's, float16 and float64, statistics on the CPU, and
+    launches nothing; a strided x or residual, or one off the 16-byte
+    grid, is copied and gives the plain sequence's result."""
+    bn = _bn_module(64, gen)
+    x = torch.randn(2, 4, 4, 64, generator=gen, device="cuda")
+    cpu_bn = torch.nn.BatchNorm2d(64).eval().requires_grad_(False)
+    cases = [(x[..., :60].contiguous().bfloat16(), _bn_module(60, gen),
+              "multiple of 8"),
+             (x[..., :62].contiguous(), _bn_module(62, gen), "multiple of 4"),
+             (x[..., :32].contiguous(), bn, "not f32 \\(32,\\)"),
+             (x.half(), bn, "dtype"), (x.double(), bn, "dtype"),
+             (x, cpu_bn, "on cpu")]
+    before = E.bn_act.launches
+    with torch.no_grad():
+        for inp, norm, match in cases:
+            with pytest.raises(NotImplementedError, match=match):
+                E.bn_act(inp, norm)
+        assert E.bn_act.launches == before
+        strided = x.transpose(1, 2)
+        shifted = torch.randn(2 * 4 * 4 * 64 + 1, generator=gen,
+                              device="cuda")[1:].view(x.shape)
+        for inp, residual in ((strided, None), (x, strided),
+                              (shifted, None), (x, shifted)):
+            assert torch.equal(_bn_launch(inp, bn, residual),
+                               E.bn_act_plain(inp, bn, residual))
+
+
+def test_bn_act_grad_through_the_kernel(gen):
+    """A call that asks for a gradient launches kernel E (the output
+    equals the plain sequence's) and its gradients are autograd's over
+    the plain sequence, bit for bit."""
+    x, r = (torch.randn(8, 8, 8, 64, generator=gen, device="cuda",
+                        requires_grad=True) for _ in range(2))
+    bn, bn_r = _bn_module(64, gen), _bn_module(64, gen)
+    for t in (bn.weight, bn.bias):
+        t.requires_grad_(True)
+    leaves = [x, r, bn.weight, bn.bias]
+    got = _bn_launch(x, bn, r, bn_r)
+    want = E.bn_act_plain(x, bn, r, bn_r)
+    assert type(got.grad_fn).__name__ == "_KernelEBackward"
+    assert torch.equal(got, want)
+    ct = torch.randn(x.shape, generator=gen, device="cuda")
+    for a, b in zip(torch.autograd.grad(got, leaves, ct),
+                    torch.autograd.grad(want, leaves, ct)):
+        assert torch.equal(a, b)
+
+
+def test_bn_act_reads_new_statistics(gen, monkeypatch):
+    """A training-mode forward moves the running statistics; the eval
+    forward after it reads the new ones (the plain sequence on the same
+    buffers, bit for bit), and differs from the eval forward before."""
+    from egotap_tpu_torch.models import resnet
+    net = resnet.ResNetEncoder("resnet18")
+    init_weights(net, torch.Generator().manual_seed(3))
+    net = net.cuda()
+    x = torch.randn(4, 64, 64, 3, generator=gen, device="cuda")
+    with torch.no_grad():
+        before = net.eval()(x)[-1]
+        net.train()(x * 2 + 1)
+        after = net.eval()(x)[-1]
+        monkeypatch.setattr(resnet, "bn_act", E.bn_act_plain)
+        plain = net(x)[-1]
+    assert torch.equal(after, plain)
+    assert not torch.equal(after, before)
+
+
+@pytest.mark.parametrize("model,per_request", [("resnet18", 34),
+                                               ("resnet50", 98)])
+def test_bn_act_predictor_bit_for_bit(gen, monkeypatch, model,
+                                      per_request):
+    """A whole bf16 `Predictor` on the card: the heatmap stack and the
+    pose with kernel E equal those of the same nets with the plain
+    sequence put in its place, bit for bit; a request counts
+    ``bn.fused`` 34 (resnet18) or 98 (resnet50), the plain run none."""
+    from egotap_tpu_torch.models import resnet
+    from egotap_tpu_torch.serving import Predictor
+    pred = Predictor(bf16=True, device="cuda", seed=0, model_name=model)
+    rgb = torch.randn(4, 2, 256, 256, 3, generator=gen, device="cuda")
+
+    def run():
+        profiling.reset()
+        profiling.enable()
+        try:
+            pose = pred(rgb)
+            counts = profiling.counters().get("serve.request", {})
+        finally:
+            profiling.disable()
+            profiling.reset()
+        with torch.no_grad():
+            stack = pred._heatmap_stack(rgb)
+        return pose, stack, {k: v for k, v in counts.items()
+                             if k.startswith("bn.")}
+    pose, stack, counts = run()
+    assert counts == {"bn.fused": per_request}
+    monkeypatch.setattr(resnet, "bn_act", E.bn_act_plain)
+    plain_pose, plain_stack, plain_counts = run()
+    assert plain_counts == {}
+    assert torch.equal(stack, plain_stack)
+    assert (pose == plain_pose).all()
