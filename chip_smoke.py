@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port on one GPU and check its kernels.
+"""Drive the PyTorch/CUDA port on one GPU: check its whole paths, time
+its kernels.
 
     python3 chip_smoke.py
 
@@ -9,29 +10,24 @@ Exits non-zero, printing no result, when there is no card. Phases:
 
 1. Print the card's name and power limit; build every kernel from
    ``egotap_tpu_torch/csrc`` (one ``nvcc`` per source, all at once).
-2. Kernel vs plain version on the card, at the serving forward's shapes,
-   in f32 and bf16: max and rms error relative to the plain output,
-   each within the kernel module's ``TOL``; faulty variants of the plain
-   version (a bf16 rounding skipped or added, f32 operands rounded to
-   TF32, the last key chunk or a term dropped, one int8 scale for the
-   whole batch or for each block's run of pixels instead of the image)
-   must fall outside those limits; median CUDA-event times of the
-   kernel, its plain version and a one-call PyTorch yardstick where one
-   exists (never used by the port); before each kernel's timings, its
-   registers, spill bytes and shared memory (``ptxas -v``) and the
-   blocks of it one SM holds (for A its grid at each shape, for C its
-   blocks and units a block, for D its cluster size and
-   ``cudaOccupancyMaxActiveClusters``); for A, C, D and E the device time
-   of a launch alone (torch.profiler; a trace that dropped most launches
-   is taken again, up to 3 in all), for C also of its walk with its grid
-   barriers alone, its latency floor. Kernels:
-   A upsample, B packed attention and B on the unpacked layout, C PU
-   chain, D fused int8 layer1 (also timed against the unfused int8
-   layer1 it replaces), E eval BatchNorm + residual + ReLU at resnet50's
-   layer1 shapes (bit for bit; its device time held within 1.5 times its
-   byte bound; controls: in f32 an FMA-contracted BatchNorm, in bf16 its
-   product rounded to bf16 and a residual added before the BatchNorm's
-   rounding).
+2. Each kernel beside its plain version on the card, at the serving
+   forward's shapes, in f32 and bf16, for the kernel table (`PERF.md`
+   section 6): the max and rms error relative to the plain output, each
+   within the kernel module's ``TOL`` (tests/test_torch_kernels_cuda.py
+   also rejects faulty controls and reads each kernel's resources);
+   median CUDA-event times of the kernel, its plain version and a
+   one-call PyTorch yardstick where one exists (never used by the
+   port); for A, C, D and E the device time of a launch alone
+   (torch.profiler; a trace that dropped most launches is taken again,
+   up to 3 in all), for C also of its walk with its grid barriers alone,
+   its latency floor; each kernel's bound at the card's peaks
+   (`benchmark/peaks.json`; A, and B and C in bf16, by
+   `benchmark/bounds.py`, the bounds the benchmark's roofline divides
+   by). Kernels: A upsample, B
+   packed attention and B on the unpacked layout, C PU chain, D fused
+   int8 layer1 (also timed against the unfused int8 layer1 it
+   replaces), E eval BatchNorm + residual + ReLU at resnet50's layer1
+   shapes (its device time held within 1.5 times its byte bound).
 3. Full path: a full-width `Predictor` (UnrealEgo, resnet18, Grid-ViT
    width 1024 x 3 layers, PU hidden 512) with seeded random weights
    serves 3 requests of (32, 2, 256, 256, 3) in bf16, in f32 and in the
@@ -49,7 +45,7 @@ Exits non-zero, printing no result, when there is no card. Phases:
    (64, 256, 256, 3)
    bf16 against the unfused int8 encoder, and one call of the unpacked
    attention wrapper at the Grid-ViT's (32, 8, 576, 128) in bf16 and
-   in f32.
+   in f32, within ``TOL`` of its plain version.
 5. Stage-2 training at full width (`bench.py` train: the egotap_unrealego
    preset, UnrealEgo, resnet18 frozen nets, Grid-ViT 1024 x 3 layers x 8
    heads over 576 tokens, PU hidden 512, bf16 amp, AdamW under
@@ -61,7 +57,8 @@ Exits non-zero, printing no result, when there is no card. Phases:
    unchanged bit for bit and their running statistics moved, launches
    per step A 6, B 3, C 1, D 0, E 0 (train-mode BatchNorm) and C's
    backward 1; B's backward
-   recompute and C's backward kernel timed (C's also by the host clock,
+   recompute and C's backward kernel timed, C's gradients first each
+   within `pu_kernel.GRAD_TOL` of the plain recompute (C's also by the host clock,
    its reverse walk on the device, beside its bound, latency floor and
    the plain recompute it replaced) and inside one profiled step. Then
    one f32 step of batch 2 on the card against the same step on the CPU
@@ -164,7 +161,7 @@ Exits non-zero, printing no result, when there is no card. Phases:
    two ranks of `cli.train` (one epoch) and `cli.test` on phase 8's
    dataset: one set of files, test means within 1e-6 of a 1-rank
    `cli.test`. (c) Kernel B at a shard's (16, 576, 512) with 4 heads
-   against its plain version, timed; `Predictor.shard(2, num_model=2,
+   within ``TOL`` of its plain version, timed; `Predictor.shard(2, num_model=2,
    devices=[cuda:0] * 4)` in f32, bf16 and calibrated int8 at batch 32
    and a ragged 31 against the same predictor unsharded (1e-5, and
    phase 3's bf16 and int8 budgets), launches a forward A 12, B 12, C 2,
@@ -189,7 +186,7 @@ Exits non-zero, printing no result, when there is no card. Phases:
    256, 256, 3): f32 within 2e-4 of the separate nets, bf16 within 2e-2
    of max, A 3 and E 17 launches a forward, fused and separate forwards
    timed.
-   (d) Kernel A against its plain version at the resnet50 decoder's
+   (d) Kernel A beside its plain version at the resnet50 decoder's
    shapes (32, 8, 8, 4096), (32, 16, 16, 4096), (32, 32, 32, 2048), as in
    phase 2, in a process of its own, run first (after phase 10 this
    process's profiler dropped most of A's launches). (e) `ConvHeatmapEncoder`, `HeatmapDecoder` and the S2D-stem
@@ -221,11 +218,6 @@ import sys
 import tempfile
 import time
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-BF16_TENSOR_FLOPS = 989e12         # dense bf16 tensor-core peak
-INT8_TENSOR_OPS = 1979e12          # dense int8 tensor-core peak
-F32_FLOPS = 67e12                  # f32 outside the tensor cores
-TF32_TENSOR_FLOPS = 494.7e12       # dense TF32 tensor-core peak
 ITERS = 20
 BF16_POSE_TOL = 5e-2               # bf16 vs f32 pose, relative to max|f32|
 # int8 (static scales) vs bf16 pose of the same weights, relative to
@@ -303,70 +295,21 @@ def device_ms(torch, fn, kernel, iters=ITERS):
                          f"{kernel}, not {iters}")
 
 
-def check(name, got, ref, tol, failures):
-    """Hold a kernel's output against its plain version: max and rms
-    error relative to the plain output, each within its limit."""
+def reading(name, got, ref, tol):
+    """A kernel's output against its plain version, the kernel table's
+    reads column: the max error, and the max and rms error relative to
+    the plain output, each held to its limit in ``tol`` (the kernel
+    module's ``TOL``). Raises when either is outside it."""
     from egotap_tpu_torch.ops import kernel_errors
     max_abs, max_rel, rms_rel = kernel_errors(got, ref)
-    ok = max_rel <= tol[0] and rms_rel <= tol[1]
+    ok = max_rel <= tol[0] and rms_rel <= tol[1]     # False when not finite
     print(f"  {name}: max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} "
           f"(tol {tol[0]:.0e}) rms_rel_err={rms_rel:.3e} (tol {tol[1]:.0e})"
           f"{'' if ok else '  FAIL'}")
-    if not ok:                             # also when not finite
-        failures.append(name)
-    return max_abs
-
-
-def control(name, faulty, ref, tol, failures):
-    """A deliberately faulty variant of the plain version: the limits that
-    hold the kernel must reject it, or they could not catch that fault."""
-    from egotap_tpu_torch.ops import kernel_errors
-    _, max_rel, rms_rel = kernel_errors(faulty, ref)
-    caught = max_rel > tol[0] or rms_rel > tol[1]
-    print(f"    control, {name}: max_rel_err={max_rel:.3e} "
-          f"rms_rel_err={rms_rel:.3e} -> "
-          f"{'rejected' if caught else 'NOT rejected  FAIL'}")
-    if not caught:
-        failures.append(f"control {name}")
-
-
-def tf32(torch, x):
-    """x rounded to TF32 (10 mantissa bits, to nearest, ties away from
-    zero), as ``cvt.rna.tf32.f32`` rounds it."""
-    bits = x.float().contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def attention_variant(torch, q, k, v, heads, rnd=None, keys=None):
-    """The plain f32 attention formula on (B, S, H*Dh) with ``rnd``
-    applied to both products' operands, over the first ``keys`` keys:
-    the faulty f32 variants the kernel's limits must reject."""
-    b, s, d = q.shape
-    hd = d // heads
-    rnd = rnd or (lambda x: x)
-
-    def split(x):
-        return x.reshape(b, -1, heads, hd).transpose(1, 2)
-    scale = torch.tensor(hd ** -0.5, dtype=torch.float32, device=q.device)
-    scores = (rnd(split(q)) @ rnd(split(k[:, :keys])).transpose(-1, -2)) * scale
-    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
-    p = p / p.sum(dim=-1, keepdim=True)
-    out = rnd(p) @ rnd(split(v[:, :keys]))
-    return out.transpose(1, 2).reshape(b, s, d)
-
-
-def attention_controls(torch, q, k, v, heads, ref, failures):
-    """Kernel B's f32 controls: one TF32 rounding of the operands (what a
-    3xTF32 product that lost its small parts computes), and the last key
-    chunk (64 keys) left out of the softmax and of p v."""
-    from egotap_tpu_torch.ops import attention
-    tol = attention.TOL[torch.float32]
-    control("operands rounded to TF32 once", attention_variant(
-        torch, q, k, v, heads, rnd=lambda x: tf32(torch, x)), ref, tol,
-        failures)
-    last = (q.shape[1] - 1) // 64 * 64
-    control("last key chunk dropped from the softmax", attention_variant(
-        torch, q, k, v, heads, keys=last), ref, tol, failures)
+    if not ok:
+        raise AssertionError(f"{name}: outside its module's TOL")
+    return {"max_abs_err": max_abs, "max_rel_err": max_rel,
+            "rms_rel_err": rms_rel}
 
 
 def yardstick(torch, fn, ref):
@@ -385,21 +328,66 @@ def yardstick(torch, fn, ref):
           f"rms_rel_err={rms_rel:.3e}")
 
 
-def attention_bound(torch, q):
-    """(bound ms, bound_by) of one kernel B launch on (B, S, H*Dh): bytes
-    against operations at the dtype's peak; f32 runs 3xTF32, three TF32
-    products for each (its bound on the CUDA cores is printed beside)."""
-    flops = 4 * q.shape[0] * q.shape[1] ** 2 * q.shape[2]
-    t_bytes = 4 * q.numel() * q.element_size() / HBM_BYTES_PER_S
-    if q.dtype == torch.bfloat16:
-        t_ops = flops / BF16_TENSOR_FLOPS
-    else:
-        t_ops = 3 * flops / TF32_TENSOR_FLOPS
-        print(f"    f32 bounds: 3xTF32 {1e3 * t_ops:.4f} ms, CUDA cores "
-              f"{1e3 * flops / F32_FLOPS:.4f} ms, bytes "
-              f"{1e3 * t_bytes:.4f} ms")
+@functools.lru_cache(maxsize=None)
+def card_peaks():
+    """The card's published peaks: `benchmark/peaks.json`'s entry for its
+    name (`benchmark.harness.peaks_for`), and the dense int8 peak
+    (`benchmark.bounds_int8`) as ``int8_ops_per_s``."""
+    import torch
+    from benchmark.bounds_int8 import INT8_OPS_PER_S
+    from benchmark.harness import peaks_for
+    name = torch.cuda.get_device_name(0)
+    peaks = peaks_for(name)
+    if peaks is None:
+        raise AssertionError(f"benchmark/peaks.json has no peaks for {name}")
+    return dict(peaks, int8_ops_per_s=INT8_OPS_PER_S)
+
+
+def shared_bound(fn, *args):
+    """ms of the `benchmark.bounds` function ``fn`` at ``args`` and the
+    card's peaks: the bound the benchmark's roofline divides by."""
+    return 1e3 * fn(*args, card_peaks())
+
+
+def own_bound(ops, peak, nbytes):
+    """(ms, what bounds it) of work the benchmark does not bound: ``ops``
+    operations at the card's ``peak`` against ``nbytes`` at its memory
+    bandwidth."""
+    peaks = card_peaks()
+    t_ops, t_bytes = ops / peaks[peak], nbytes / peaks["hbm_bytes_per_s"]
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def attention_bound(torch, q):
+    """(bound ms, bound_by) of one kernel B launch on (B, S, H*Dh): q, k,
+    v read and the output written once against QK^T's and PV's
+    operations. In bf16 the benchmark's bound; f32 runs 3xTF32, three
+    TF32 products for each operation."""
+    from benchmark import bounds
+    ops = 4 * q.shape[0] * q.shape[1] ** 2 * q.shape[2]
+    nbytes = 4 * q.numel() * q.element_size()
+    if q.dtype == torch.float32:
+        return own_bound(3 * ops, "tf32_flops_per_s", nbytes)
+    _, by = own_bound(ops, "bf16_flops_per_s", nbytes)
+    return shared_bound(bounds.attention_bound, *q.shape,
+                        q.element_size()), by
+
+
+def pu_chain_bound(torch, b, joints, hidden, dt):
+    """(bound ms, bound_by) of one kernel C launch: 13 hidden^2 products
+    a joint and row against its weights in ``dt`` and its f32 gates,
+    output and biases, each moved once. In bf16 the benchmark's bound;
+    f32 runs its products on the CUDA cores."""
+    from benchmark import bounds
+    h, rows = hidden, b * joints
+    ops = 2 * rows * 13 * h * h
+    nbytes = 13 * h * h * dt.itemsize + 4 * (6 * rows * h + 9 * h)
+    if dt == torch.float32:
+        return own_bound(ops, "f32_flops_per_s", nbytes)
+    _, by = own_bound(ops, "bf16_flops_per_s", nbytes)
+    return shared_bound(bounds.pu_chain_bound, b, joints, hidden,
+                        dt.itemsize), by
 
 
 # kernel A's three calls a net at batch 32: the resnet18 decoder's, and
@@ -408,44 +396,30 @@ RESNET18_SHAPES = [(32, 8, 8, 1024), (32, 16, 16, 1024), (32, 32, 32, 512)]
 RESNET50_SHAPES = [(32, 8, 8, 4096), (32, 16, 16, 4096), (32, 32, 32, 2048)]
 
 
-def upsample_rows(torch, F, card, key, shapes, g, failures):
-    """Kernel A against its plain version at ``shapes`` in f32 and bf16
-    (its resources, the faulty bf16 control, times, the device time of a
-    launch, the bound, F.interpolate); rows {(key, dtype): sums over the
-    shapes}."""
-    from egotap_tpu_torch.ops import upsample
-    from egotap_tpu_torch.ops.upsample import (upsample2x_align_corners,
+def worst(tot, reads):
+    """Fold a shape's readings into a row's: the largest of each."""
+    for k, v in reads.items():
+        tot[k] = max(tot.get(k, 0.0), v)
+
+
+def upsample_rows(torch, F, card, key, shapes, g):
+    """Kernel A beside its plain version at ``shapes`` in f32 and bf16
+    (readings, times, the device time of a launch, the bound,
+    F.interpolate); rows {(key, dtype): sums over the shapes, the worst
+    readings}."""
+    from benchmark.bounds import upsample_bound
+    from egotap_tpu_torch.ops.upsample import (TOL, upsample2x_align_corners,
                                                upsample2x_plain)
     dev = torch.device("cuda")
     rows = {}
     for dt in (torch.float32, torch.bfloat16):
         tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-               "bound_ms": 0.0, "device_ms": 0.0, "max_abs_err": 0.0}
+               "bound_ms": 0.0, "device_ms": 0.0}
         for shp in shapes:
-            geo = upsample.launch_geometry(*shp, dt)
-            res = upsample.kernel_resources(dt, geo["smem"])
-            print(f"  upsample {dt} kernel at {shp}: grid {geo['grid']}, "
-                  f"{geo['band']} output rows x {geo['cv']} vectors a block, "
-                  f"{geo['staged']} input rows staged; ptxas "
-                  f"{res['registers']} registers, {res['spill_store_bytes']} "
-                  f"+ {res['spill_load_bytes']} bytes spill stores + loads; "
-                  f"{res['smem_bytes']} bytes of shared memory a block of "
-                  f"{res['threads']} threads, {res['blocks_per_sm']} blocks "
-                  f"fit one SM")
-            if (res["blocks_per_sm"] < 1
-                    or res["registers"] != res["runtime_registers"]):
-                raise AssertionError(f"{dt} upsample kernel resources: {res}")
             x = torch.randn(shp, generator=g, device=dev).to(dt)
-            ref = upsample2x_plain(x)
-            err = check(f"upsample {dt} {shp}", upsample2x_align_corners(x),
-                        ref, upsample.TOL[dt], failures)
-            if dt == torch.bfloat16:
-                d = x.dim()
-                rows_bf16 = upsample._lerp(x.float(), d - 3, shp[1]).to(dt)
-                control("rows rounded to bf16 before the column pass",
-                        upsample._lerp(rows_bf16.float(), d - 2, shp[2]
-                                       ).to(dt), ref, upsample.TOL[dt],
-                        failures)
+            worst(tot, reading(f"upsample {dt} {shp}",
+                               upsample2x_align_corners(x),
+                               upsample2x_plain(x), TOL[dt]))
             nchw = x.permute(0, 3, 1, 2)
             ms = time_ms(torch, lambda: upsample2x_align_corners(x))
             dms = device_ms(torch, lambda: upsample2x_align_corners(x),
@@ -453,16 +427,14 @@ def upsample_rows(torch, F, card, key, shapes, g, failures):
             pms = time_ms(torch, lambda: upsample2x_plain(x))
             lms = time_ms(torch, lambda: F.interpolate(
                 nchw, scale_factor=2, mode="bilinear", align_corners=True))
-            nbytes = x.numel() * x.element_size() * 5     # read 1, write 4
-            flops = 6 * 4 * x.numel()                     # 3 lerps / output
-            bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS)
+            bound = shared_bound(upsample_bound, shp, x.element_size())
             print(f"    {shp}: kernel {ms:.4f} ms (its launch alone on the "
                   f"device {dms:.4f} ms), plain {pms:.4f} ms, F.interpolate "
                   f"{lms:.4f} ms, bound {bound:.4f} ms [{card}]")
             for k, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms),
                          ("bound_ms", bound), ("device_ms", dms)):
                 tot[k] += v
-            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        # 5 bytes of each element's type moved for its 24 operations
         rows[(key, dt)] = dict(tot, bound_by="bytes")
     return rows
 
@@ -475,25 +447,18 @@ BN_ACT_SHAPES = (((64, 64, 64, 256), True), ((64, 64, 64, 64), False))
 BN_ACT_BOUND_RATIO = 1.5
 
 
-def bn_act_rows(torch, card, g, failures):
-    """Kernel E against the plain sequence at `BN_ACT_SHAPES` in f32 and
-    bf16 (its resources and grid, the faulty controls, times, the device
-    time of a launch, the bytes bound); rows {("bn_act", dtype): sums
-    over the shapes}."""
+def bn_act_rows(torch, card, g):
+    """Kernel E beside the plain sequence at `BN_ACT_SHAPES` in f32 and
+    bf16 (readings, times, the device time of a launch against its bytes
+    bound); rows {("bn_act", dtype): sums over the shapes, the worst
+    readings}."""
     from egotap_tpu_torch.ops import bn_act as E
     rows = {}
     for dt in (torch.float32, torch.bfloat16):
         tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-               "device_ms": 0.0, "max_abs_err": 0.0}
+               "device_ms": 0.0}
         for shp, residual in BN_ACT_SHAPES:
             c = shp[-1]
-            res = E.kernel_resources(dt, int(residual), math.prod(shp), c)
-            print(f"  bn_act {dt} kernel at {shp}: {res['registers']} "
-                  f"registers, {res['local_bytes']} local bytes a thread; "
-                  f"{res['blocks_per_sm']} blocks of {res['threads']} "
-                  f"threads fit one SM; grid {res['grid']}")
-            if res["blocks_per_sm"] < 1 or res["local_bytes"]:
-                raise AssertionError(f"{dt} bn_act kernel resources: {res}")
             bn = torch.nn.BatchNorm2d(c, eps=E.BN_EPS).cuda().eval()
             bn.requires_grad_(False)
             with torch.no_grad():
@@ -505,50 +470,26 @@ def bn_act_rows(torch, card, g, failures):
             r = torch.randn(shp, generator=g, device="cuda").to(dt) \
                 if residual else None
             form = "+ block input, ReLU" if residual else "ReLU"
-            ref = E.bn_act_plain(x, bn, r)
-            err = check(f"bn_act {dt} {shp} BatchNorm {form}",
-                        E.bn_act(x, bn, r), ref, E.TOL[dt], failures)
-            # faults an output in the dtype shows: in f32 one FMA for
-            # (x - mean) * inv + bias (a 1-ulp change; in bf16 it rarely
-            # moves a rounding); in bf16 the product rounded to bf16
-            # before + bias, and the residual added before the
-            # BatchNorm's rounding
-            inv = torch.rsqrt(bn.running_var + E.BN_EPS) * bn.weight
-            centred = x.float() - bn.running_mean
-            if dt == torch.float32:
-                faulty = (centred.double() * inv.double()
-                          + bn.bias.double()).float()
-                control("(x - mean) * inv + bias as one FMA",
-                        torch.relu(faulty if r is None else faulty + r),
-                        ref, E.TOL[dt], failures)
-            else:
-                faulty = ((centred * inv).to(dt).float() + bn.bias).to(dt)
-                control("(x - mean) * inv rounded to bf16 before + bias",
-                        torch.relu(faulty if r is None else faulty + r),
-                        ref, E.TOL[dt], failures)
-                if residual:
-                    control("residual added before the BatchNorm's "
-                            "rounding", torch.relu(
-                                centred * inv + bn.bias + r.float()).to(dt),
-                            ref, E.TOL[dt], failures)
+            worst(tot, reading(f"bn_act {dt} {shp} BatchNorm {form}",
+                               E.bn_act(x, bn, r), E.bn_act_plain(x, bn, r),
+                               E.TOL[dt]))
             ms = time_ms(torch, lambda: E.bn_act(x, bn, r))
             dms = device_ms(torch, lambda: E.bn_act(x, bn, r),
                             "bn_act_kernel")
             pms = time_ms(torch, lambda: E.bn_act_plain(x, bn, r))
             nbytes = (3 if residual else 2) * x.numel() * x.element_size()
-            bound = 1e3 * nbytes / HBM_BYTES_PER_S
+            bound = 1e3 * nbytes / card_peaks()["hbm_bytes_per_s"]
             print(f"    {shp}: kernel {ms:.4f} ms (its launch alone on the "
                   f"device {dms:.4f} ms, {dms / bound:.2f} x the bound), "
                   f"plain {pms:.4f} ms, bound {bound:.4f} ms (bytes: x"
                   f"{', the residual' if residual else ''} read once, the "
                   f"output written once) [{card}]")
             if not dms <= BN_ACT_BOUND_RATIO * bound:
-                failures.append(f"bn_act {dt} {shp}: {dms / bound:.2f} x "
-                                f"its bound")
+                raise AssertionError(f"bn_act {dt} {shp}: its launch takes "
+                                     f"{dms / bound:.2f} x its bound")
             for k, v in (("ms", ms), ("plain_ms", pms), ("bound_ms", bound),
                          ("device_ms", dms)):
                 tot[k] += v
-            tot["max_abs_err"] = max(tot["max_abs_err"], err)
         rows[("bn_act", dt)] = dict(tot, library_ms=None, bound_by="bytes")
     return rows
 
@@ -563,48 +504,27 @@ def phase_kernels(torch, F, card):
     from egotap_tpu_torch.ops.fused_layer1 import (fused_layer1_int8,
                                                    fused_layer1_plain,
                                                    pack_blocks)
-    from egotap_tpu_torch.ops.quant import (Calibrated, f32_scalar, im2col,
-                                            install_scales, int8_matmul,
-                                            prequantize, quantized_conv,
-                                            set_calibrating)
+    from egotap_tpu_torch.ops.quant import (Calibrated, install_scales,
+                                            prequantize, set_calibrating)
     from egotap_tpu_torch.serving import init_weights
     from egotap_tpu_torch.ops.pu_kernel import pu_chain_fused, pu_chain_plain
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    rows, failures = {}, []
+    rows = {}
 
     # ---- A: upsample at the decoder's three grids (one net's calls)
     rows.update(upsample_rows(torch, F, card, "upsample", RESNET18_SHAPES,
-                              g, failures))
+                              g))
 
     # ---- B: packed attention at the Grid-ViT's shape
-    for dt in (torch.float32, torch.bfloat16):
-        res = attention.kernel_resources(dt)
-        print(f"  attention {dt} kernel: ptxas {res['registers']} registers, "
-              f"{res['spill_store_bytes']} + {res['spill_load_bytes']} bytes "
-              f"spill stores + loads, {res['static_smem_bytes']} bytes static "
-              f"shared memory; a block of {res['threads']} threads takes "
-              f"{res['smem_bytes']} bytes of shared memory and "
-              f"{res['blocks_per_sm']} blocks fit one SM "
-              f"({res['blocks_per_sm'] * res['threads'] // 32} of 64 warps)")
-        if (res["blocks_per_sm"] < 1
-                or res["registers"] != res["runtime_registers"]):
-            raise AssertionError(f"{dt} attention kernel resources: {res}")
     b, s, heads, hd = 32, 576, 8, 128
     for dt in (torch.float32, torch.bfloat16):
         q, k, v = (torch.randn(b, s, heads * hd, generator=g,
                                device=dev).to(dt) for _ in range(3))
         ref = attention_packed_plain(q, k, v, heads)
-        err = check(f"attention {dt} {(b, s, heads * hd)}",
-                    multihead_attention_packed(q, k, v, heads), ref,
-                    attention.TOL[dt], failures)
-        if dt == torch.bfloat16:
-            control("p left in f32 (not rounded to bf16 before p v)",
-                    attention_packed_plain(q.float(), k.float(), v.float(),
-                                           heads).to(dt),
-                    ref, attention.TOL[dt], failures)
-        else:
-            attention_controls(torch, q, k, v, heads, ref, failures)
+        reads = reading(f"attention {dt} {(b, s, heads * hd)}",
+                        multihead_attention_packed(q, k, v, heads), ref,
+                        attention.TOL[dt])
         split = [x.view(b, s, heads, hd).transpose(1, 2) for x in (q, k, v)]
         ms = time_ms(torch, lambda: multihead_attention_packed(q, k, v, heads))
         pms = time_ms(torch, lambda: attention_packed_plain(q, k, v, heads))
@@ -617,23 +537,11 @@ def phase_kernels(torch, F, card):
               f"bound {bound:.4f} ms [{card}]")
         rows[("attention", dt)] = dict(
             ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bound,
-            max_abs_err=err, bound_by=by)
+            bound_by=by, **reads)
 
     # ---- C: PU chain at the lifter's shape
     b, J, H = 32, 15, 512
     for dt in (torch.float32, torch.bfloat16):
-        res = pu_kernel.kernel_resources(dt, b, H)
-        print(f"  pu_chain {dt} kernel: ptxas {res['registers']} registers, "
-              f"{res['spill_store_bytes']} + {res['spill_load_bytes']} bytes "
-              f"spill stores + loads; {res['blocks']} blocks of "
-              f"{res['units']} units and {res['threads']} threads, "
-              f"{res['smem_bytes']} bytes of shared memory a block "
-              f"(k-chunk {res['kc']}, {res['ks']} k-splits), "
-              f"{res['blocks_per_sm']} blocks fit one SM of {res['sms']}")
-        if (res["blocks_per_sm"] < 1 or res["blocks"] > res["sms"]
-                or res["registers"] != res["runtime_registers"]):
-            raise AssertionError(f"{dt} PU chain kernel resources: {res}")
-
         def u(*shape, bound=H ** -0.5):
             return (torch.rand(shape, generator=g, device=dev) * 2 - 1) * bound
         fh = torch.sigmoid(torch.randn(b, J, H, generator=g, device=dev))
@@ -644,21 +552,9 @@ def phase_kernels(torch, F, card):
         cell1 = {"x2f": {"kernel": u(H, H).to(dt).t(), "bias": u(H)},
                  "x2h": {"kernel": u(4 * H, H).to(dt).t(), "bias": u(4 * H)},
                  "h2h": {"kernel": u(4 * H, H).to(dt).t(), "bias": u(4 * H)}}
-        ref = pu_chain_plain(fh, gp, w0, cell1)
-        err = check(f"pu_chain {dt} B={b} J={J} H={H}",
-                    pu_chain_fused(fh, gp, w0, cell1), ref,
-                    pu_kernel.TOL[dt], failures)
-        if dt == torch.bfloat16:
-            f32_cell1 = {n: {"kernel": c["kernel"].float(), "bias": c["bias"]}
-                         for n, c in cell1.items()}
-            control("matrix operands left in f32 (not rounded to bf16)",
-                    pu_chain_plain(fh, gp, w0.float(), f32_cell1), ref,
-                    pu_kernel.TOL[dt], failures)
-            no_rec = dict(cell1, h2h={"kernel": torch.zeros_like(
-                cell1["h2h"]["kernel"]), "bias": cell1["h2h"]["bias"]})
-            control("layer-1 recurrent product dropped",
-                    pu_chain_plain(fh, gp, w0, no_rec), ref,
-                    pu_kernel.TOL[dt], failures)
+        reads = reading(f"pu_chain {dt} B={b} J={J} H={H}",
+                        pu_chain_fused(fh, gp, w0, cell1),
+                        pu_chain_plain(fh, gp, w0, cell1), pu_kernel.TOL[dt])
         ms = time_ms(torch, lambda: pu_chain_fused(fh, gp, w0, cell1))
         pms = time_ms(torch, lambda: pu_chain_plain(fh, gp, w0, cell1))
         dms = device_ms(torch, lambda: pu_chain_fused(fh, gp, w0, cell1),
@@ -666,22 +562,14 @@ def phase_kernels(torch, F, card):
         floor = device_ms(torch, lambda: pu_kernel.barrier_walk(b, J, H, dt,
                                                                 dev),
                           "pu_chain_kernel")
-        flops = 2 * b * H * 13 * H * J
-        wbytes = (w0.numel() + sum(c["kernel"].numel() for c in cell1.values())
-                  ) * w0.element_size()
-        nbytes = wbytes + 4 * (fh.numel() + gp.numel() + fh.numel()
-                               + sum(c["bias"].numel() for c in cell1.values()))
-        peak = BF16_TENSOR_FLOPS if dt == torch.bfloat16 else F32_FLOPS
-        t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
-        bound = 1e3 * max(t_ops, t_bytes)
+        bound, by = pu_chain_bound(torch, b, J, H, dt)
         print(f"    kernel {ms:.4f} ms (its launch alone on the device "
               f"{dms:.4f} ms), plain {pms:.4f} ms, bound {bound:.4f} ms, "
               f"latency floor (the walk's {J + 1} grid barriers alone, on "
               f"the device) {floor:.4f} ms [{card}]")
         rows[("pu_chain", dt)] = dict(
             ms=ms, plain_ms=pms, library_ms=None, bound_ms=bound,
-            max_abs_err=err, device_ms=dms, latency_floor_ms=floor,
-            bound_by="operations" if t_ops >= t_bytes else "bytes")
+            device_ms=dms, latency_floor_ms=floor, bound_by=by, **reads)
 
     # ---- B on the unpacked (B, H, S, Dh) layout (`multihead_attention`)
     b, heads, s, hd = 32, 8, 576, 128
@@ -692,18 +580,9 @@ def phase_kernels(torch, F, card):
         def plain_unpacked(q, k, v):
             flat = [x.reshape(b * heads, s, hd) for x in (q, k, v)]
             return attention_packed_plain(*flat, heads=1).reshape(q.shape)
-        ref = plain_unpacked(q, k, v)
-        err = check(f"attention unpacked {dt} {(b, heads, s, hd)}",
-                    multihead_attention(q, k, v), ref, attention.TOL[dt],
-                    failures)
-        if dt == torch.bfloat16:
-            control("p left in f32 (not rounded to bf16 before p v)",
-                    plain_unpacked(q.float(), k.float(), v.float()).to(dt),
-                    ref, attention.TOL[dt], failures)
-        else:
-            flat = [x.reshape(b * heads, s, hd) for x in (q, k, v)]
-            attention_controls(torch, *flat, 1, ref.reshape(b * heads, s, hd),
-                               failures)
+        reads = reading(f"attention unpacked {dt} {(b, heads, s, hd)}",
+                        multihead_attention(q, k, v), plain_unpacked(q, k, v),
+                        attention.TOL[dt])
         ms = time_ms(torch, lambda: multihead_attention(q, k, v))
         pms = time_ms(torch, lambda: plain_unpacked(q, k, v))
         lms = time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v))
@@ -712,7 +591,7 @@ def phase_kernels(torch, F, card):
               f"bound {bound:.4f} ms [{card}]")
         rows[("attention_unpacked", dt)] = dict(
             ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bound,
-            max_abs_err=err, bound_by=by)
+            bound_by=by, **reads)
 
     # ---- D: fused int8 layer1 at one net's shape (batch 32 x 2 views);
     # image i scaled by 1 + i/8, so that the per-image scales differ
@@ -723,67 +602,12 @@ def phase_kernels(torch, F, card):
     wq, ws, bias = pack_blocks(blocks, BN_EPS)
     n, hw, c = 64, 64, 64
     ramp = 1 + torch.arange(n, device=dev)[:, None, None, None] / 8
-
-    def one_scale_per_batch(x):
-        """The stage with one dynamic int8 scale per conv for the whole
-        batch (the generic `quantized_conv`), instead of one per image."""
-        act = res = x.float()
-        for i in range(wq.shape[0]):
-            w = wq[i].reshape(3, 3, c, c).permute(3, 2, 0, 1)
-            out = quantized_conv(act, w, ws[i], 1, 1, bias[i])
-            act = torch.relu(out if i % 2 == 0 else out + res)
-            res = act if i % 2 else res
-        return act.to(x.dtype)
-
-    geo = fused_layer1.cluster_geometry(hw, hw)
-    pb = geo["pixels"]
-
-    def one_scale_per_band(x):
-        """The stage with one scale per block's run of pixels (its rows)
-        instead of one per image: the fault a cluster design can make."""
-        act = res = x.float()
-        for i in range(wq.shape[0]):
-            band = act.reshape(n, -1, pb * c).abs().amax(dim=2)  # (n, cl)
-            a_scale = (torch.clamp_min(band, 1e-12) / f32_scalar(act, 127.0)
-                       ).repeat_interleave(pb, dim=1).reshape(n, hw, hw, 1)
-            codes = torch.round(act / a_scale).clamp_(-127, 127).to(
-                torch.int8)
-            cols, _ = im2col(codes, 3, 1, 1)
-            acc = int8_matmul(cols, wq[i].t()).reshape(n, hw, hw, c)
-            out = acc.float() * (a_scale * ws[i]) + bias[i]
-            act = torch.relu(out if i % 2 == 0 else out + res)
-            res = act if i % 2 else res
-        return act.to(x.dtype)
-
     for dt in (torch.float32, torch.bfloat16):
-        res = fused_layer1.kernel_resources(dt, hw, hw)
-        print(f"  fused_layer1 {dt} kernel: ptxas {res['registers']} "
-              f"registers, {res['spill_store_bytes']} + "
-              f"{res['spill_load_bytes']} bytes spill stores + loads; "
-              f"clusters of {res['cluster']} blocks of {res['pixels']} "
-              f"pixels and {res['threads']} threads, {res['smem_bytes']} "
-              f"bytes of shared memory a block, {res['blocks_per_sm']} "
-              f"blocks fit one SM of {res['sms']}; "
-              f"cudaOccupancyMaxActiveClusters {res['max_active_clusters']}")
-        if (res["max_active_clusters"] < 1
-                or res["registers"] != res["runtime_registers"]):
-            raise AssertionError(f"{dt} fused layer1 kernel resources: {res}")
         x = (torch.randn(n, hw, hw, c, generator=g, device=dev) * ramp).to(dt)
-        ref = fused_layer1_plain(x, wq, ws, bias)
-        err = check(f"fused_layer1 {dt} {tuple(x.shape)}",
-                    fused_layer1_int8(x, wq, ws, bias), ref,
-                    fused_layer1.TOL[dt], failures)
-        control("one activation scale for the whole batch",
-                one_scale_per_batch(x), ref, fused_layer1.TOL[dt], failures)
-        control(f"one activation scale per block ({pb} pixels) instead of "
-                f"per image", one_scale_per_band(x), ref,
-                fused_layer1.TOL[dt], failures)
-        xf = x.float()
-        block1 = fused_layer1_plain(xf, wq[:2], ws[:2], bias[:2])
-        conv3 = fused_layer1_plain(block1, wq[2:3], ws[2:3], bias[2:3])
-        control("residual dropped from the second block",
-                fused_layer1_plain(conv3, wq[3:], ws[3:], bias[3:]).to(dt),
-                ref, fused_layer1.TOL[dt], failures)
+        reads = reading(f"fused_layer1 {dt} {tuple(x.shape)}",
+                        fused_layer1_int8(x, wq, ws, bias),
+                        fused_layer1_plain(x, wq, ws, bias),
+                        fused_layer1.TOL[dt])
         # the path it replaces: the int8 BasicBlocks, with static scales
         # calibrated on this input, as the served encoder runs them
         set_calibrating([blocks], True)
@@ -799,24 +623,19 @@ def phase_kernels(torch, F, card):
         for m in blocks.modules():               # fresh scales per dtype
             if isinstance(m, Calibrated):
                 m.a_scale = None
-        ops = 2 * n * hw * hw * 9 * c * c * wq.shape[0]
-        nbytes = 2 * x.numel() * x.element_size() + wq.numel() \
-            + 4 * (ws.numel() + bias.numel())
-        t_ops, t_bytes = ops / INT8_TENSOR_OPS, nbytes / HBM_BYTES_PER_S
-        bound = 1e3 * max(t_ops, t_bytes)
+        bound, by = own_bound(
+            2 * n * hw * hw * 9 * c * c * wq.shape[0], "int8_ops_per_s",
+            2 * x.numel() * x.element_size() + wq.numel()
+            + 4 * (ws.numel() + bias.numel()))
         print(f"    kernel {ms:.4f} ms (its launch alone on the device "
               f"{dms:.4f} ms), plain {pms:.4f} ms, unfused int8 layer1 "
               f"{ums:.4f} ms, bound {bound:.4f} ms [{card}]")
         rows[("fused_layer1", dt)] = dict(
             ms=ms, plain_ms=pms, library_ms=None, unfused_ms=ums,
-            device_ms=dms,
-            bound_ms=bound, max_abs_err=err,
-            bound_by="operations" if t_ops >= t_bytes else "bytes")
+            device_ms=dms, bound_ms=bound, bound_by=by, **reads)
 
     # ---- E: eval BatchNorm, residual add and ReLU at resnet50's layer1
-    rows.update(bn_act_rows(torch, card, g, failures))
-    if failures:
-        raise AssertionError(f"kernel checks failed: {failures}")
+    rows.update(bn_act_rows(torch, card, g))
     return rows
 
 
@@ -1022,8 +841,7 @@ def phase_entry_points(torch, card):
     """The encoder with the fused int8 layer1, and the unpacked attention
     wrapper, each through its own entry point."""
     from egotap_tpu_torch.models.resnet import ResNetEncoder
-    from egotap_tpu_torch.ops import attention
-    from egotap_tpu_torch.ops.attention import (attention_packed_plain,
+    from egotap_tpu_torch.ops.attention import (TOL, attention_packed_plain,
                                                 multihead_attention)
     from egotap_tpu_torch.ops.quant import prequantize
     from egotap_tpu_torch.serving import init_weights
@@ -1079,11 +897,8 @@ def phase_entry_points(torch, card):
             raise AssertionError("the unpacked wrapper must launch kernel B "
                                  "once")
         flat = [x.reshape(256, 576, 128) for x in (q, k, v)]
-        failures = []
-        check(f"unpacked attention output {dt}", got, attention_packed_plain(
-            *flat, heads=1).reshape(got.shape), attention.TOL[dt], failures)
-        if failures:
-            raise AssertionError("the unpacked wrapper's output is wrong")
+        reading(f"unpacked attention output {dt}", got, attention_packed_plain(
+            *flat, heads=1).reshape(got.shape), TOL[dt])
         unpacked[dt] = counts["attention_unpacked"]
     return enc_counts["fused_layer1"], unpacked
 
@@ -1133,56 +948,14 @@ PU_LEAVES = ("fh", "gates_pre", "h2h0.kernel", "x2f.kernel", "x2f.bias",
              "x2h.kernel", "x2h.bias", "h2h.kernel", "h2h.bias")
 
 
-def pu_grad_checks(torch, dt, saved, ct, got, want):
-    """C's backward on the card (``got``, a gradient a leaf of ``saved``)
-    against the plain recompute (``want``, `ops.plain_vjp` over
-    `pu_chain_plain`): each leaf within `pu_kernel.GRAD_TOL`; then the
-    reverse walk with layer 1's recurrent term dropped, and in bf16 with
-    x's gradient left unrounded (`tests/pu_chain_schedule.py`), read
-    through the same comparison, must fall outside it in some leaf.
-    Raises when either fails."""
-    import importlib.util
-    import os
-    from egotap_tpu_torch.ops import kernel_errors, pu_kernel
-    # by its path: a `tests` package installed elsewhere can shadow the
-    # repository's directory of that name
-    spec = importlib.util.spec_from_file_location("pu_chain_schedule", (
-        os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                     "pu_chain_schedule.py")))
-    schedule = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(schedule)
-    tol = pu_kernel.GRAD_TOL[dt]
-    failures = []
-    for name, g, w in zip(PU_LEAVES, got, want):
-        check(f"C's backward {dt} d{name}", g, w, tol, failures)
-    faults = ["no_recurrent"] + (["unrounded"] if dt == torch.bfloat16
-                                 else [])
-    for fault in faults:
-        dfh, dgp, dw0, d1 = schedule.schedule_vjp(*saved[:3],
-                                         pu_kernel._nested(saved[3:]), ct,
-                                         **{fault: True})
-        bad = [dfh, dgp, dw0] + [d1[n][leaf] for n, leaf in pu_kernel._CELL1]
-        reads = {name: kernel_errors(g, w)[1:]
-                 for name, g, w in zip(PU_LEAVES, bad, want)}
-        name, (max_rel, rms_rel) = max(reads.items(), key=lambda kv: max(
-            kv[1][0] / tol[0], kv[1][1] / tol[1]))
-        caught = max_rel > tol[0] or rms_rel > tol[1]
-        print(f"    control, {fault}: worst d{name} max_rel_err="
-              f"{max_rel:.3e} rms_rel_err={rms_rel:.3e} -> "
-              f"{'rejected' if caught else 'NOT rejected  FAIL'}")
-        if not caught:
-            failures.append(f"control {fault}")
-    if failures:
-        raise AssertionError(f"{dt} C's backward: {failures}")
-
-
 def recompute_ms(torch, card):
     """Per launch, in bf16 and f32 at the training step's shapes: kernel
     B's backward recompute (`ops.plain_vjp` over the plain version) by
     CUDA events; kernel C's backward (its reverse-walk kernel and the
-    weight products), its gradients first held to the plain recompute it
-    replaced (`pu_grad_checks`), then timed by the host clock around the
-    call and by CUDA events, beside the whole backward's bound, and its
+    weight products), each leaf's gradient first held within
+    `pu_kernel.GRAD_TOL` of the plain recompute it replaced, then timed
+    by the host clock around the call and by CUDA events, beside the
+    whole backward's bound, and its
     reverse walk's launch alone on the device (`device_ms`) beside the
     walk's own bound and its latency floor (the walk's J + 1 barriers);
     and the plain recompute (`plain_vjp` over `pu_chain_plain`)."""
@@ -1222,7 +995,9 @@ def recompute_ms(torch, card):
 
         def backward():
             return torch.autograd.grad(y, leaves, ct, retain_graph=True)
-        pu_grad_checks(torch, dt, saved, ct, backward(), recompute())
+        for name, got, want in zip(PU_LEAVES, backward(), recompute()):
+            reading(f"C's backward {dt} d{name}", got, want,
+                    pu_kernel.GRAD_TOL[dt])
         events = time_ms(torch, backward)
         hosts = []
         for _ in range(ITERS):
@@ -1241,23 +1016,13 @@ def recompute_ms(torch, card):
         walk_flops = 2 * b * J * 13 * H * H
         rows = pu_kernel.STATES + 3 + 4 + 4 + 1 + 1 + 3
         walk_bytes = 4 * b * J * H * rows + 13 * H * H * dt.itemsize
-        walk_bound = 1e3 * max(walk_flops / F32_FLOPS,
-                               walk_bytes / HBM_BYTES_PER_S)
+        walk_bound, _ = own_bound(walk_flops, "f32_flops_per_s", walk_bytes)
         # the whole backward: the walk, then the weight products as many
         # operations again, which read the operands and gate gradients
         # once more and write the weight gradients
-        bound = 1e3 * max(2 * walk_flops / F32_FLOPS,
-                          (walk_bytes + 4 * b * J * H * (3 + 4 + 4 + 1)
-                           + 13 * H * H * dt.itemsize) / HBM_BYTES_PER_S)
-        res = pu_kernel.reverse_resources(dt, b, H)
-        print(f"  C's reverse walk {dt}: {res['registers']} registers, "
-              f"spills {res['spill_store_bytes']} / {res['spill_load_bytes']}"
-              f" bytes, {res['smem_bytes']} bytes of shared memory, "
-              f"{res['blocks']} blocks of {res['units']} units, "
-              f"{res['blocks_per_sm']} a SM of {res['sms']}")
-        if (res["spill_store_bytes"] or res["blocks_per_sm"] < 1
-                or res["blocks"] > res["sms"]):
-            raise AssertionError(f"{dt} C's reverse walk resources: {res}")
+        bound, _ = own_bound(2 * walk_flops, "f32_flops_per_s",
+                             walk_bytes + 4 * b * J * H * (3 + 4 + 4 + 1)
+                             + 13 * H * H * dt.itemsize)
         out[("pu_chain", dt)] = dict(ms=events, host_ms=host, bound_ms=bound,
                                      device_ms=device,
                                      device_bound_ms=walk_bound,
@@ -1273,6 +1038,16 @@ def recompute_ms(torch, card):
     return out
 
 
+def range_kernels_ms(evt, ranges=()):
+    """Device time of the kernels launched inside the profiler range (or
+    op) ``evt`` and its children, in ms. A `record_function` range also
+    shows on the device as an event of its own name spanning its
+    kernels; that span is not a kernel and is not counted."""
+    own = sum(k.duration for k in evt.kernels if k.name not in ranges)
+    return own / 1e3 + sum(range_kernels_ms(c, ranges)
+                           for c in evt.cpu_children)
+
+
 def profile_train_step(torch, task, state, batch, card):
     """Device time of the kernels of one training step under
     torch.profiler, and of those of the backward of B (its recompute) and
@@ -1281,7 +1056,6 @@ def profile_train_step(torch, task, state, batch, card):
     launched from outside PyTorch's ops, so the profiler's op tree gives
     its range only the weight products, and the span holds it)."""
     from torch.profiler import ProfilerActivity, profile
-    from egotap_tpu_torch.breakdown import range_kernels_ms
     from egotap_tpu_torch.ops import attention, pu_kernel
     labels = {"attention": attention.BACKWARD_LABEL,
               "pu_chain": pu_kernel.BACKWARD_LABEL}
@@ -1568,7 +1342,6 @@ def profile_recompute(torch, step, card):
     """Launches of A's backward recompute in one training step (its
     profiler ranges) and the device time of their kernels."""
     from torch.profiler import ProfilerActivity, profile
-    from egotap_tpu_torch.breakdown import range_kernels_ms
     from egotap_tpu_torch.ops import upsample
     label = upsample.BACKWARD_LABEL
     with profile(activities=[ProfilerActivity.CPU,
@@ -1581,6 +1354,33 @@ def profile_recompute(torch, step, card):
     print(f"  profiled step: {len(ranges)} backward recomputes of kernel A, "
           f"their kernels {ms:.3f} ms on the device [{card}]")
     return len(ranges)
+
+
+def raw_stage1_batch(torch, batch, seed, device="cuda"):
+    """A raw stage-1 batch of 256 x 256 stereo pairs and 16 joints drawn
+    with numpy from ``seed`` (the loaders' keys,
+    `data.pipeline.make_device_preprocess`): N(0, 1) rgb, 2D joints
+    uniform over 1024-space and beyond it (some out of view), one bone of
+    zero length in 2D and one with no length in xy, 3D poses of N(0, 30)
+    cm around pelvises of N(0, 5)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = {f"input_rgb_{s}": rng.standard_normal(
+        (batch, 256, 256, 3), dtype=np.float32) for s in ("left", "right")}
+    for side in ("left", "right"):
+        c2d = rng.uniform(-150, 1150, (batch, 16, 2)).astype(np.float32)
+        c2d[0, 3] = c2d[0, 2]
+        out[f"gt_camera_2d_{side}"] = c2d
+    pose = rng.normal(0, 30, (batch, 16, 3)).astype(np.float32)
+    pose[-1, 4, :2] = pose[-1, 0, :2]
+    out.update(gt_local_pose=pose,
+               gt_local_rot=rng.normal(0, 1, (batch, 16, 3)).astype(
+                   np.float32),
+               gt_pelvis_left=rng.normal(0, 5, (batch, 3)).astype(np.float32),
+               gt_pelvis_right=rng.normal(0, 5, (batch, 3)).astype(
+                   np.float32),
+               mask=np.ones((batch,), np.float32))
+    return {k: torch.from_numpy(v).to(device) for k, v in out.items()}
 
 
 def check_targets(torch, feed, cpu_feed):
@@ -1604,12 +1404,11 @@ def train1_run(torch, preset, card, **overrides):
     """TRAIN_STEPS bf16 stage-1 steps at full width on one fixed batch
     rendered on the card (``overrides`` over the preset); returns the
     state and what was counted."""
-    from egotap_tpu_torch.breakdown import raw_stage1_batch
     from egotap_tpu_torch.core.config import Config
     from egotap_tpu_torch.data.pipeline import make_device_preprocess
     from egotap_tpu_torch.train.tasks import HeatmapTask
     cfg = Config.from_preset(preset, **overrides)
-    raw = raw_stage1_batch(cfg.batch_size, seed=30)
+    raw = raw_stage1_batch(torch, cfg.batch_size, seed=30)
     pre = make_device_preprocess(cfg)
     feed = pre(raw)
     targets = check_targets(torch, feed, pre({k: v.cpu()
@@ -1702,7 +1501,6 @@ def train1_card_vs_cpu(torch, card, held="", **overrides):
     the kink. The gradients held to TRAIN_GRAD_TOL are those of the
     parameters named ``held...`` (all by default); the whole net's is
     printed beside."""
-    from egotap_tpu_torch.breakdown import raw_stage1_batch
     from egotap_tpu_torch.core.config import Config
     from egotap_tpu_torch.data.pipeline import make_device_preprocess
     from egotap_tpu_torch.models import heatmap_net
@@ -1713,7 +1511,7 @@ def train1_card_vs_cpu(torch, card, held="", **overrides):
     start = HeatmapTask(cfg, device="cpu").init_state(1, 1).net
     init_weights(start, torch.Generator().manual_seed(2))
     weights = start.state_dict()
-    raw = raw_stage1_batch(2, seed=31, device="cpu")
+    raw = raw_stage1_batch(torch, 2, seed=31, device="cpu")
     readings = {}
     real = heatmap_net.upsample2x_align_corners
     for label, dev in (("cuda", "cuda"), ("cpu", "cpu"),
@@ -2861,21 +2659,19 @@ def phase_data_parallel(torch, card, tmp, cli_tmp):
 
 def attention_tp_rows(torch, F, card):
     """Kernel B at a tensor-parallel shard's shape, (16, 576, 512) with 4
-    heads (a data shard's 16 rows, half the heads), against its plain
-    version within its TOL, timed, in both dtypes."""
-    from egotap_tpu_torch.ops import attention
-    from egotap_tpu_torch.ops.attention import (attention_packed_plain,
+    heads (a data shard's 16 rows, half the heads), within ``TOL`` of its
+    plain version, timed, in both dtypes."""
+    from egotap_tpu_torch.ops.attention import (TOL, attention_packed_plain,
                                                 multihead_attention_packed)
     g = torch.Generator(device="cuda").manual_seed(33)
     b, s, heads, hd = 16, 576, 4, 128
-    rows, failures = {}, []
+    rows = {}
     for dt in (torch.float32, torch.bfloat16):
         q, k, v = (torch.randn(b, s, heads * hd, generator=g,
                                device="cuda").to(dt) for _ in range(3))
-        ref = attention_packed_plain(q, k, v, heads)
-        err = check(f"attention {dt} {(b, s, heads * hd)}, {heads} heads",
-                    multihead_attention_packed(q, k, v, heads), ref,
-                    attention.TOL[dt], failures)
+        reads = reading(f"attention {dt} {(b, s, heads * hd)}, {heads} heads",
+                        multihead_attention_packed(q, k, v, heads),
+                        attention_packed_plain(q, k, v, heads), TOL[dt])
         split = [x.view(b, s, heads, hd).transpose(1, 2) for x in (q, k, v)]
         ms = time_ms(torch, lambda: multihead_attention_packed(q, k, v, heads))
         pms = time_ms(torch, lambda: attention_packed_plain(q, k, v, heads))
@@ -2885,9 +2681,7 @@ def attention_tp_rows(torch, F, card):
               f"ms, bound {bound:.4f} ms [{card}]")
         rows[("attention_tp", dt)] = dict(
             ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bound,
-            max_abs_err=err, bound_by=by)
-    if failures:
-        raise AssertionError(f"kernel B at 4 heads: {failures}")
+            bound_by=by, **reads)
     return rows
 
 
@@ -3205,11 +2999,10 @@ def upsample_rows_fresh(torch, card):
             "import chip_smoke as c\n"
             "torch.set_grad_enabled(False)\n"
             "g = torch.Generator(device='cuda').manual_seed(45)\n"
-            "failures = []\n"
             "rows = c.upsample_rows(torch, F, sys.argv[1], 'upsample_r50',\n"
-            "                       c.RESNET50_SHAPES, g, failures)\n"
-            "print(json.dumps({'failures': failures, 'rows': [\n"
-            "    [str(dt), r] for (_, dt), r in rows.items()]}))\n")
+            "                       c.RESNET50_SHAPES, g)\n"
+            "print(json.dumps([[str(dt), r] for (_, dt), r in rows.items()]))"
+            "\n")
     out = subprocess.run([sys.executable, "-c", code, card], text=True,
                          capture_output=True, timeout=600,
                          cwd=os.path.dirname(os.path.abspath(__file__)))
@@ -3218,12 +3011,9 @@ def upsample_rows_fresh(torch, card):
     if out.returncode != 0:
         raise AssertionError(f"kernel A at resnet50 widths: exit "
                              f"{out.returncode}\n{out.stderr[-4000:]}")
-    result = json.loads(lines[-1])
-    if result["failures"]:
-        raise AssertionError(f"kernel A at resnet50 widths: "
-                             f"{result['failures']}")
     dtypes = {str(dt): dt for dt in (torch.float32, torch.bfloat16)}
-    return {("upsample_r50", dtypes[dt]): r for dt, r in result["rows"]}
+    return {("upsample_r50", dtypes[dt]): r
+            for dt, r in json.loads(lines[-1])}
 
 
 def phase_bottleneck(torch, card):
@@ -3275,7 +3065,8 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  [{name}] {line.strip()}")
 
-    print("phase 2: kernels vs plain versions on the card")
+    print("phase 2: kernels beside their plain versions on the card: "
+          "times, bounds, readings")
     rows = phase_kernels(torch, F, card)
 
     print("phase 3: full serving path, batch 32, bf16, f32 and int8")
@@ -3384,7 +3175,8 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "dtype": str(dt).removeprefix("torch.")})
-        for extra in ("unfused_ms", "device_ms", "latency_floor_ms"):
+        for extra in ("max_rel_err", "rms_rel_err", "unfused_ms",
+                      "device_ms", "latency_floor_ms"):
             if extra in r:
                 kernels[-1][extra] = r[extra]
         if key == "bn_act":
@@ -3444,7 +3236,8 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "dtype": str(dt).removeprefix("torch."),
-            "device_ms": r["device_ms"]})
+            "device_ms": r["device_ms"], "max_rel_err": r["max_rel_err"],
+            "rms_rel_err": r["rms_rel_err"]})
         if dt == torch.bfloat16:
             kernels[-1]["resnet101_serve_launches"] = \
                 served["resnet101 bf16"]["upsample"]

@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from typing import Dict
@@ -125,6 +126,26 @@ def build_log(name: str) -> str:
     library(name)
     with open(_target(name)[:-3] + ".log") as f:
         return f.read()
+
+
+def ptxas_resources(name: str, tag: str) -> dict:
+    """What ``ptxas -v`` reported in the build log of ``csrc/<name>.cu``
+    for its one entry function whose mangled name holds ``tag``:
+    ``registers``, ``spill_store_bytes``, ``spill_load_bytes`` and
+    ``static_smem_bytes`` (0 when the log names none)."""
+    log = build_log(name)
+    entry = [part for part in log.split("Compiling entry function")
+             if tag in part.split("\n", 1)[0]]
+    if len(entry) != 1:
+        raise RuntimeError(f"the build log holds no single {tag}:\n{log}")
+
+    def read(pattern):
+        found = re.search(pattern, entry[0])
+        return int(found.group(1)) if found else 0
+    return {"registers": read(r"Used (\d+) registers"),
+            "spill_store_bytes": read(r"(\d+) bytes spill stores"),
+            "spill_load_bytes": read(r"(\d+) bytes spill loads"),
+            "static_smem_bytes": read(r"(\d+) bytes smem")}
 
 
 def check(err: int, what: str) -> None:

@@ -32,7 +32,6 @@ from __future__ import annotations
 
 import ctypes
 import math
-import re
 
 import torch
 
@@ -168,22 +167,10 @@ def kernel_resources(dtype: torch.dtype) -> dict:
     reports it."""
     name = {torch.float32: "attention_f32_kernel",
             torch.bfloat16: "attention_bf16_kernel"}[dtype]
-    log = _build.build_log("attention")
-    entry = [part for part in log.split("Compiling entry function")
-             if name in part.split("\n", 1)[0]]
-    if len(entry) != 1:
-        raise RuntimeError(f"the build log holds no single {name}:\n{log}")
-
-    def read(pattern):
-        found = re.search(pattern, entry[0])
-        return int(found.group(1)) if found else 0
     info = (ctypes.c_int * 5)()
     _build.check(_build.library("attention").egotap_attention_occupancy(
         _DTYPE_CODE[dtype], ctypes.addressof(info)), "attention occupancy")
-    return {"registers": read(r"Used (\d+) registers"),
-            "spill_store_bytes": read(r"(\d+) bytes spill stores"),
-            "spill_load_bytes": read(r"(\d+) bytes spill loads"),
-            "static_smem_bytes": read(r"(\d+) bytes smem"),
+    return {**_build.ptxas_resources("attention", name),
             "blocks_per_sm": info[0], "runtime_registers": info[1],
             "local_bytes": info[2], "smem_bytes": info[3],
             "threads": info[4]}

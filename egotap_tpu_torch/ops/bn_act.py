@@ -15,7 +15,7 @@ sequence's bit for bit (`TOL`). It takes f32 or bf16 with channels a
 multiple of 4 or 8 and the BatchNorms' four f32 vectors beside x, and
 raises NotImplementedError for anything else; a non-contiguous or
 misaligned input is copied first, as kernel A does. Each launch counts
-``bn.fused`` with `utils.profiling.count`.
+in ``bn_act.launches`` (`ops.launch_counts`), as the other kernels' do.
 
 Gradients: when one is asked for, the kernel is the forward of
 `_KernelE`, whose backward is autograd over the plain sequence
@@ -31,7 +31,6 @@ import torch
 from torch import nn
 
 from egotap_tpu_torch.ops import _build, plain_vjp
-from egotap_tpu_torch.utils import profiling
 
 BN_EPS = 1e-5
 
@@ -189,7 +188,6 @@ def bn_act(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm,
         out = _KernelE.apply(*inputs)
     else:                # no graph to record: skip the Function's host time
         out = _launch(x, residual, vectors)
-    profiling.count("bn.fused")
     bn_act.launches += 1
     return out
 

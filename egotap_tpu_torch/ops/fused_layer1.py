@@ -22,7 +22,6 @@ CUDA tensor and `fused_layer1_plain` for a CPU tensor.
 from __future__ import annotations
 
 import ctypes
-import re
 from typing import Sequence, Tuple
 
 import torch
@@ -96,7 +95,7 @@ def fused_layer1_plain(x: torch.Tensor, w_q: torch.Tensor,
 # the dequantization without FMA contraction, one final rounding. On an
 # H100 the kernel equals the plain version bit for bit at every shape
 # tried, in f32 and bf16 (reading 0); the limits only leave room for
-# rounding noise. The faulty controls of `chip_smoke.py` read far above
+# rounding noise. The faulty controls of the card tests read far above
 # them: one scale for the whole batch (6.4e-3, 8.8e-3), one scale per
 # block's 256 pixels instead of per image (4.4e-2, 1.7e-2), the residual
 # dropped from the second block (1.0, 0.94).
@@ -164,24 +163,12 @@ def kernel_resources(dtype: torch.dtype, h: int, w: int) -> dict:
     the image's ``cluster`` size)."""
     tag = {torch.float32: "layer1_kernelIfE",
            torch.bfloat16: "layer1_kernelI13__nv_bfloat16E"}[dtype]
-    log = _build.build_log("fused_layer1")
-    entry = [part for part in log.split("Compiling entry function")
-             if tag in part.split("\n", 1)[0]]
-    if len(entry) != 1:
-        raise RuntimeError(f"the build log holds no single {tag}:\n{log}")
-
-    def read(pattern):
-        found = re.search(pattern, entry[0])
-        return int(found.group(1)) if found else 0
     geo = cluster_geometry(h, w)
     info = (ctypes.c_int * 7)()
     _build.check(_build.library("fused_layer1").egotap_fused_layer1_occupancy(
         _DTYPE_CODE[dtype], w, geo["pixels"], geo["cluster"],
         geo["tile_rows"], ctypes.addressof(info)), "fused_layer1 occupancy")
-    return dict(geo, registers=read(r"Used (\d+) registers"),
-                spill_store_bytes=read(r"(\d+) bytes spill stores"),
-                spill_load_bytes=read(r"(\d+) bytes spill loads"),
-                static_smem_bytes=read(r"(\d+) bytes smem"),
+    return dict(geo, **_build.ptxas_resources("fused_layer1", tag),
                 max_active_clusters=info[0], runtime_registers=info[1],
                 local_bytes=info[2], smem_bytes=info[3], threads=info[4],
                 blocks_per_sm=info[5], sms=info[6])

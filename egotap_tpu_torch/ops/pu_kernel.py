@@ -30,7 +30,6 @@ counterpart, with the kernel's rounding places. JAX differentiates its
 from __future__ import annotations
 
 import ctypes
-import re
 from typing import Dict
 
 import torch
@@ -223,6 +222,8 @@ TOL = {torch.float32: (2e-5, 2e-6), torch.bfloat16: (5e-4, 1e-4)}
 GRAD_TOL = {torch.float32: (1e-5, 5e-6), torch.bfloat16: (1e-2, 1.2e-3)}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# each dtype's template argument in the kernels' mangled names (ptxas -v)
+_MANGLED = {torch.float32: "If", torch.bfloat16: "I13__nv_bfloat16"}
 BACKWARD_LABEL = "kernel C backward"     # profiler range of the backward
 # the states the forward writes for the backward when a gradient is
 # wanted, each (B, J, H) f32: layer 0's sigmoid(f), sigmoid(i), tanh(g),
@@ -442,8 +443,9 @@ def barrier_walk(b: int, J: int, hidden: int, dtype: torch.dtype,
 
 def kernel_resources(dtype: torch.dtype, b: int, hidden: int) -> dict:
     """What kernel C in ``dtype`` takes of an SM at (B, H) (needs the
-    card): ``registers``, ``spill_store_bytes``, ``spill_load_bytes`` from
-    ``ptxas -v`` in the build log; from the runtime ``blocks_per_sm``,
+    card): ``registers``, spill bytes and static shared memory from
+    ``ptxas -v`` in the build log (the instance that does not write
+    states); from the runtime ``blocks_per_sm``,
     ``runtime_registers``, ``local_bytes``, ``smem_bytes`` a block,
     ``threads`` a block and ``sms``; the launch's ``blocks``, ``units`` a
     block, k-chunk ``kc`` and k-splits ``ks``."""
@@ -452,7 +454,8 @@ def kernel_resources(dtype: torch.dtype, b: int, hidden: int) -> dict:
     _build.check(_build.library("pu_chain").egotap_pu_chain_occupancy(
         _DTYPE_CODE[dtype], b, hidden, padded(hidden), units,
         ctypes.addressof(info)), "pu_chain occupancy")
-    return {**_ptxas("pu_chain_kernel", dtype),
+    return {**_build.ptxas_resources(
+                "pu_chain", f"pu_chain_kernel{_MANGLED[dtype]}Lb0E"),
             "blocks_per_sm": info[0], "runtime_registers": info[1],
             "local_bytes": info[2], "smem_bytes": info[3],
             "threads": info[4], "sms": info[5], "kc": info[6],
@@ -468,30 +471,9 @@ def reverse_resources(dtype: torch.dtype, b: int, hidden: int) -> dict:
     _build.check(_build.library("pu_chain").egotap_pu_chain_backward_occupancy(
         _DTYPE_CODE[dtype], b, hidden, padded(hidden), units,
         ctypes.addressof(info)), "pu_chain backward occupancy")
-    return {**_ptxas("pu_chain_reverse", dtype),
+    return {**_build.ptxas_resources(
+                "pu_chain", f"pu_chain_reverse{_MANGLED[dtype]}"),
             "blocks_per_sm": info[0], "runtime_registers": info[1],
             "local_bytes": info[2], "smem_bytes": info[3],
             "threads": info[4], "sms": info[5], "units": units,
             "blocks": hidden // units}
-
-
-def _ptxas(kernel: str, dtype: torch.dtype) -> dict:
-    """Registers and spill bytes that ``ptxas -v`` reported for the
-    instance of ``kernel`` in ``dtype`` (the forward's: the one that
-    does not write states) in the build log."""
-    tag = kernel + {torch.float32: "If", torch.bfloat16:
-                    "I13__nv_bfloat16"}[dtype]
-    if kernel == "pu_chain_kernel":
-        tag += "Lb0E"
-    log = _build.build_log("pu_chain")
-    entry = [part for part in log.split("Compiling entry function")
-             if tag in part.split("\n", 1)[0]]
-    if len(entry) != 1:
-        raise RuntimeError(f"the build log holds no single {tag}:\n{log}")
-
-    def read(pattern):
-        found = re.search(pattern, entry[0])
-        return int(found.group(1)) if found else 0
-    return {"registers": read(r"Used (\d+) registers"),
-            "spill_store_bytes": read(r"(\d+) bytes spill stores"),
-            "spill_load_bytes": read(r"(\d+) bytes spill loads")}

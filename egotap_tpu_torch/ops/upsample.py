@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import re
 from typing import Tuple
 
 import numpy as np
@@ -143,22 +142,10 @@ def kernel_resources(dtype: torch.dtype, smem: int) -> dict:
     ``threads`` from the runtime."""
     tag = {torch.float32: "upsample2x_kernelIfE",
            torch.bfloat16: "upsample2x_kernelI13__nv_bfloat16E"}[dtype]
-    log = _build.build_log("upsample")
-    entry = [part for part in log.split("Compiling entry function")
-             if tag in part.split("\n", 1)[0]]
-    if len(entry) != 1:
-        raise RuntimeError(f"the build log holds no single {tag}:\n{log}")
-
-    def read(pattern):
-        found = re.search(pattern, entry[0])
-        return int(found.group(1)) if found else 0
     info = (ctypes.c_int * 5)()
     _build.check(_build.library("upsample").egotap_upsample2x_occupancy(
         _VEC[dtype][1], smem, ctypes.addressof(info)), "upsample occupancy")
-    return {"registers": read(r"Used (\d+) registers"),
-            "spill_store_bytes": read(r"(\d+) bytes spill stores"),
-            "spill_load_bytes": read(r"(\d+) bytes spill loads"),
-            "static_smem_bytes": read(r"(\d+) bytes smem"),
+    return {**_build.ptxas_resources("upsample", tag),
             "blocks_per_sm": info[0], "runtime_registers": info[1],
             "local_bytes": info[2], "smem_bytes": info[3],
             "threads": info[4]}

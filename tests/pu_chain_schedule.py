@@ -1,8 +1,8 @@
 """Kernel C's reverse walk emulated interval by interval in plain PyTorch
 (``pu_chain_reverse`` in ``egotap_tpu_torch/csrc/pu_chain.cu``), and
 the faults that the negative controls of its gradient checks inject.
-Imported by the CPU tests, the card tests and ``chip_smoke.py``; it
-imports neither JAX nor pytest."""
+Imported by the CPU tests and the card tests; it imports neither JAX
+nor pytest."""
 
 import torch
 

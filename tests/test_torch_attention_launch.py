@@ -1,7 +1,7 @@
 """What `ops/attention.py` checks and passes on before kernel B launches,
 on the CPU: the library is replaced by a recorder, so no kernel runs. The
 kernel itself is held to its plain version on the card
-(`tests/test_torch_kernels_cuda.py`, `chip_smoke.py`)."""
+(`tests/test_torch_kernels_cuda.py`)."""
 
 import pytest
 import torch

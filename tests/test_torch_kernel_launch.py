@@ -3,7 +3,7 @@ before they launch, on the CPU: the libraries are replaced by a recorder
 and the tensors live on the ``meta`` device (no data, but not the CPU, so
 the wrappers take their kernel path), so no kernel runs. The kernels
 themselves are held to their plain versions on the card
-(`tests/test_torch_kernels_cuda.py`, `chip_smoke.py`)."""
+(`tests/test_torch_kernels_cuda.py`)."""
 
 import pytest
 import torch
@@ -16,7 +16,6 @@ from egotap_tpu_torch.ops import bn_act as E
 from egotap_tpu_torch.ops import fused_layer1 as fl
 from egotap_tpu_torch.ops import pu_kernel
 from egotap_tpu_torch.ops import upsample as up
-from egotap_tpu_torch.utils import profiling
 from tests.test_torch_attention_launch import FakeLibrary
 
 H100 = (132, 232448)             # SMs, shared memory a block may opt in to
@@ -375,22 +374,15 @@ def test_bn_act_launch_arguments(fake, dtype, code, mode):
 
 def test_bn_act_copies_what_it_cannot_read(fake):
     """Kernel E takes a non-contiguous x or residual as a contiguous copy
-    (as kernel A does) and launches on it; each launch counts
-    ``bn.fused`` under the request's root span, as the other counters."""
+    (as kernel A does) and launches on it; each launch counts in
+    ``launch_counts()["bn_act"]``, as the other kernels' do."""
     bn = _bn(64)
     x = _meta(2, 4, 4, 64, dtype=torch.bfloat16)
-    profiling.reset()
-    profiling.enable()
-    try:
-        with profiling.span("serve.request", root=7):
-            out = E.bn_act(x.transpose(1, 2), bn)
-            E.bn_act(x, bn, x.transpose(1, 2))
-        counts = profiling.counters()
-    finally:
-        profiling.disable()
-        profiling.reset()
+    before = launch_counts()["bn_act"]
+    out = E.bn_act(x.transpose(1, 2), bn)
+    E.bn_act(x, bn, x.transpose(1, 2))
     assert out.is_contiguous() and out.shape == (2, 4, 4, 64)
-    assert counts == {"serve.request": {"bn.fused": 2}}
+    assert launch_counts()["bn_act"] == before + 2
     assert [name for name, _ in fake.calls] == ["bn_act", "bn_act"]
 
 
@@ -449,23 +441,15 @@ def test_bn_act_backward_is_the_plain_sequences(monkeypatch, mode):
 def test_bn_act_trunk_sites(fake, model, fused, blocks, downsamples):
     """Every BatchNorm site of an eval trunk (the stem; conv1 and conv2 of
     a basic block, conv1 to conv3 of a bottleneck; a downsample's
-    BatchNorm inside its block's last call) is one kernel E call under
-    the request's root span: 17 a resnet18 trunk, 49 a resnet50 one, in
-    the residual forms its blocks have; a trunk in training mode calls
-    none."""
+    BatchNorm inside its block's last call) is one kernel E launch: 17 a
+    resnet18 trunk, 49 a resnet50 one, in the residual forms its blocks
+    have; a trunk in training mode calls none."""
     with torch.device("meta"):
         net = resnet.ResNetEncoder(model).eval().requires_grad_(False)
     x = _meta(2, 64, 64, 3, dtype=torch.bfloat16)
-    profiling.reset()
-    profiling.enable()
-    try:
-        with profiling.span("serve.request", root=0):
-            net(x)
-        counts = profiling.counters()
-    finally:
-        profiling.disable()
-        profiling.reset()
-    assert counts == {"serve.request": {"bn.fused": fused}}
+    before = launch_counts()["bn_act"]
+    net(x)
+    assert launch_counts()["bn_act"] == before + fused
     modes = [args[14] for _, args in fake.calls]
     assert modes.count(2) == downsamples
     assert modes.count(1) == blocks - downsamples
@@ -476,7 +460,7 @@ def test_bn_act_trunk_sites(fake, model, fused, blocks, downsamples):
 
 
 def test_eval_trunk_on_cpu_is_the_plain_sequence():
-    """On the CPU the eval trunk takes the plain sequence and counts
+    """On the CPU the eval trunk takes the plain sequence and launches
     nothing: a block with a downsample equals the steps written out
     (BatchNorm, ReLU; BatchNorm plus the downsample's BatchNorm, ReLU)."""
     g = torch.Generator().manual_seed(0)
@@ -486,16 +470,9 @@ def test_eval_trunk_on_cpu_is_the_plain_sequence():
             t.data = torch.rand(t.shape, generator=g) + 0.5
     x = torch.randn(2, 8, 8, 64, generator=g).to(torch.bfloat16)
     before = E.bn_act.launches
-    profiling.reset()
-    profiling.enable()
-    try:
-        with torch.no_grad(), profiling.span("serve.request", root=0):
-            got = block(x)
-        counts = profiling.counters()
-    finally:
-        profiling.disable()
-        profiling.reset()
-    assert counts == {} and E.bn_act.launches == before
+    with torch.no_grad():
+        got = block(x)
+    assert E.bn_act.launches == before
     with torch.no_grad():
         out = torch.relu(E.batch_norm_eval(
             resnet.conv_nhwc(x, block.conv1), block.bn1))

@@ -1,11 +1,14 @@
-"""The port's hand-written CUDA kernels at edge shapes the serving
-forward does not give them, and the shapes they refuse. `chip_smoke.py`
-holds them at the main path's shapes and drives the full forward. Every
-test here needs a CUDA card and skips without one; the file imports
-nothing of JAX, so it also runs where only PyTorch is installed:
+"""The port's hand-written CUDA kernels against their plain versions on
+the card: at edge shapes and at the serving forward's shapes, with the
+faulty variants that their limits must reject, their resources, and the
+shapes they refuse. `chip_smoke.py` times them and drives the whole
+paths. Every test here needs a CUDA card and skips without one; the file
+imports nothing of JAX, so it also runs where only PyTorch is installed:
 
     python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 """
+
+import math
 
 import pytest
 import torch
@@ -14,12 +17,15 @@ from egotap_tpu_torch.models.resnet import BasicBlock
 from egotap_tpu_torch.ops import attention as att
 from egotap_tpu_torch.ops import bn_act as E
 from egotap_tpu_torch.ops import fused_layer1 as fl
-from egotap_tpu_torch.ops import attention_launches_by_heads, kernel_errors
+from egotap_tpu_torch.ops import (attention_launches_by_heads, kernel_errors,
+                                  launch_counts)
 from egotap_tpu_torch.ops import pu_kernel
 from egotap_tpu_torch.ops import upsample as up
+from egotap_tpu_torch.ops.quant import (f32_scalar, im2col, int8_matmul,
+                                        quantized_conv)
 from egotap_tpu_torch.serving import init_weights
-from egotap_tpu_torch.utils import profiling
 from pu_chain_schedule import schedule_vjp
+from test_torch_attention_launch import _tf32
 
 pytestmark = pytest.mark.cuda
 
@@ -36,6 +42,12 @@ def gen():
 def _close(got, ref, tol):
     _, max_rel, rms_rel = kernel_errors(got, ref)
     assert max_rel <= tol[0] and rms_rel <= tol[1], (max_rel, rms_rel, tol)
+
+
+def _outside(got, want, tol):
+    """Some output of ``got`` reads outside ``tol`` against ``want``."""
+    return any(m > tol[0] or r > tol[1] for m, r in
+               (kernel_errors(g, w)[1:] for g, w in zip(got, want)))
 
 
 # sequence lengths around the kernels' tiles: 64 query rows a block (16 a
@@ -59,10 +71,11 @@ def test_attention_matches_plain(gen, heads, s, dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,s,heads", [(1, 641, 8), (2, 1000, 1),
-                                       (1, 2048, 2)])
+                                       (1, 2048, 2), (32, 576, 8)])
 def test_attention_bf16_long_seq(gen, b, s, heads, dtype):
     """Neither kernel keeps a score tile, so S has no limit, on the packed
-    and on the unpacked layout."""
+    and on the unpacked layout; and the Grid-ViT's serving call, (32, 576,
+    8 x 128), on both."""
     dt = getattr(torch, dtype)
     q, k, v = (torch.randn(b, s, heads * 128, generator=gen,
                            device="cuda").to(dt) for _ in range(3))
@@ -119,6 +132,59 @@ def test_attention_late_row_max(gen, s, layout, dtype):
     _close(got, ref, att.TOL[dt])
 
 
+def _attention_variant(q, k, v, heads, rnd=lambda x: x, keys=None):
+    """The plain f32 attention formula on (B, S, H*Dh) with ``rnd``
+    applied to both products' operands, over the first ``keys`` keys:
+    the faulty f32 variants kernel B's limits must reject."""
+    b, s, d = q.shape
+    hd = d // heads
+
+    def split(x):
+        return x.reshape(b, -1, heads, hd).transpose(1, 2)
+    scale = torch.tensor(hd ** -0.5, dtype=torch.float32, device=q.device)
+    scores = (rnd(split(q)) @ rnd(split(k[:, :keys])).transpose(-1, -2)
+              ) * scale
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    out = rnd(p) @ rnd(split(v[:, :keys]))
+    return out.transpose(1, 2).reshape(b, s, d)
+
+
+@pytest.mark.parametrize("layout", ["packed", "unpacked"])
+@pytest.mark.parametrize("fault,dtype", [("p_unrounded", "bfloat16"),
+                                         ("tf32_once", "float32"),
+                                         ("last_chunk_dropped", "float32")])
+def test_attention_controls_rejected(gen, fault, dtype, layout):
+    """Faults the limits must see at the Grid-ViT's call, (32, 576, 8 x
+    128), packed and on the unpacked (B, H, S, Dh) layout: in bf16 p left
+    in f32 (not rounded before p v); in f32 both products' operands
+    rounded to TF32 once (what 3xTF32 computes when it loses its small
+    parts), and the last chunk of 64 keys left out of the softmax and of
+    p v. Each reads outside `TOL` where the kernel reads inside."""
+    dt = getattr(torch, dtype)
+    b, s, heads = 32, 576, 8
+    if layout == "packed":
+        q, k, v = (torch.randn(b, s, heads * 128, generator=gen,
+                               device="cuda").to(dt) for _ in range(3))
+        got = att.multihead_attention_packed(q, k, v, heads)
+    else:
+        qkv = [torch.randn(b, heads, s, 128, generator=gen,
+                           device="cuda").to(dt) for _ in range(3)]
+        got = att.multihead_attention(*qkv).reshape(b * heads, s, 128)
+        q, k, v = (x.reshape(b * heads, s, 128) for x in qkv)
+        heads = 1
+    ref = att.attention_packed_plain(q, k, v, heads)
+    _close(got, ref, att.TOL[dt])
+    if fault == "p_unrounded":
+        faulty = att.attention_packed_plain(q.float(), k.float(), v.float(),
+                                            heads).to(dt)
+    elif fault == "tf32_once":
+        faulty = _attention_variant(q, k, v, heads, rnd=_tf32)
+    else:
+        faulty = _attention_variant(q, k, v, heads, keys=(s - 1) // 64 * 64)
+    assert _outside([faulty], [ref], att.TOL[dt])
+
+
 def test_attention_bf16_kernel_resources(gen):
     """The build log and the runtime agree on the kernel's registers, and
     at least three of its blocks fit one SM (the design's occupancy)."""
@@ -149,11 +215,17 @@ def test_upsample_matches_plain_5d(gen, dtype):
     _close(got, up.upsample2x_plain(x), up.TOL[dt])
 
 
+# kernel A's three calls a decoder makes at the serving batch of 32: a
+# resnet18 net's, and a resnet50/101 net's (4x the channels)
+RESNET18_CALLS = [(32, 8, 8, 1024), (32, 16, 16, 1024), (32, 32, 32, 512)]
+RESNET50_CALLS = [(32, 8, 8, 4096), (32, 16, 16, 4096), (32, 32, 32, 2048)]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [
     (3, 1, 4, 8), (2, 5, 1, 16), (2, 7, 9, 8), (1, 1, 1, 8),   # h, w = 1, odd
     (2, 33, 17, 24), (1, 160, 96, 64),      # ragged band, narrowed slices
-    (70000, 2, 2, 8)])                      # images past the grid's 65535
+    (70000, 2, 2, 8)] + RESNET18_CALLS)     # images past the grid's 65535
 def test_upsample_edge_shapes(gen, shape, dtype):
     dt = getattr(torch, dtype)
     x = torch.randn(shape, generator=gen, device="cuda").to(dt)
@@ -164,15 +236,31 @@ def test_upsample_edge_shapes(gen, shape, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_upsample_resnet50_width(gen, dtype):
-    """The largest call of a resnet50/101 decoder (fs = 8: conv_up2's 2048
-    channels at 32 x 32, batch 32), one launch."""
+@pytest.mark.parametrize("shape", RESNET50_CALLS)
+def test_upsample_resnet50_width(gen, shape, dtype):
+    """The calls of a resnet50/101 decoder (fs = 8; the largest conv_up2's
+    2048 channels at 32 x 32, batch 32), one launch each."""
     dt = getattr(torch, dtype)
-    x = torch.randn(32, 32, 32, 2048, generator=gen, device="cuda").to(dt)
+    x = torch.randn(shape, generator=gen, device="cuda").to(dt)
     before = up.upsample2x_align_corners.launches
     got = up.upsample2x_align_corners(x)
     assert up.upsample2x_align_corners.launches == before + 1
     _close(got, up.upsample2x_plain(x), up.TOL[dt])
+
+
+@pytest.mark.parametrize("shape", RESNET18_CALLS + RESNET50_CALLS)
+def test_upsample_controls_rejected(gen, shape):
+    """The fault the limits must see in bf16 at the decoders' serving
+    calls: the rows rounded to bf16 between the row and the column pass
+    (a second rounding) reads outside `TOL`, where the kernel reads
+    inside."""
+    dt = torch.bfloat16
+    x = torch.randn(shape, generator=gen, device="cuda").to(dt)
+    ref = up.upsample2x_plain(x)
+    _close(up.upsample2x_align_corners(x), ref, up.TOL[dt])
+    rows = up._lerp(x.float(), 1, shape[1]).to(dt)
+    faulty = up._lerp(rows.float(), 2, shape[2]).to(dt)
+    assert _outside([faulty], [ref], up.TOL[dt])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -216,34 +304,65 @@ def test_upsample_kernel_resources(gen, dtype):
     assert res["blocks_per_sm"] >= 4, res
 
 
-def _pu_inputs(gen, b, j, h, dt):
+def _pu_inputs(gen, b, j, h, dt, views=False):
+    """Kernel C's inputs at (B, J, H); with ``views`` its (in, out)
+    kernels are transposed views of (out, in) tensors, as the lifter
+    passes its Linear weights (which the kernel reads without a copy)."""
     def u(*shape):
         return (torch.rand(shape, generator=gen, device="cuda") * 2 - 1
                 ) * h ** -0.5
+
+    def kernel(n_in, n_out):
+        return u(n_out, n_in).to(dt).t() if views else u(n_in, n_out).to(dt)
     fh = torch.sigmoid(torch.randn(b, j, h, generator=gen, device="cuda"))
     gp = 0.5 * torch.randn(b, j, 4 * h, generator=gen, device="cuda")
-    cell1 = {n: {"kernel": u(h, m).to(dt), "bias": u(m)}
+    cell1 = {n: {"kernel": kernel(h, m), "bias": u(m)}
              for n, m in (("x2f", h), ("x2h", 4 * h), ("h2h", 4 * h))}
-    return fh, gp, u(h, 4 * h).to(dt), cell1
+    return fh, gp, kernel(h, 4 * h), cell1
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,j,h", [(1, 1, 128), (5, 2, 128), (8, 5, 128),
-                                   (32, 15, 512), (33, 17, 512), (3, 4, 36)])
-def test_pu_chain_matches_plain_small(gen, b, j, h, dtype):
+@pytest.mark.parametrize("b,j,h,views", [
+    (1, 1, 128, False), (5, 2, 128, False), (8, 5, 128, False),
+    (32, 15, 512, False), (32, 15, 512, True), (33, 17, 512, False),
+    (3, 4, 36, False)])
+def test_pu_chain_matches_plain_small(gen, b, j, h, views, dtype):
     """H=128: one hidden unit per block; 512: the lifter's four. B=1, 3, 5
     and 33 leave ragged row tiles; J=1 is fill and drain alone; J=15 and
     17 walk long enough for a stale operand (an L1 hit on another block's
     slot, a wrong buffer) to show. H=36 is padded to 48: bf16 weight rows
     (72 bytes) reach the kernel padded, f32 ones are padded in shared
-    memory."""
+    memory. (32, 15, 512) with the weights as views is the lifter's
+    serving call."""
     dt = getattr(torch, dtype)
-    args = _pu_inputs(gen, b, j, h, dt)
+    args = _pu_inputs(gen, b, j, h, dt, views)
     before = pu_kernel.pu_chain_fused.launches
     got = pu_kernel.pu_chain_fused(*args)
     assert pu_kernel.pu_chain_fused.launches == before + 1
     assert got.shape == (b, j, h) and torch.isfinite(got).all()
     _close(got, pu_kernel.pu_chain_plain(*args), pu_kernel.TOL[dt])
+
+
+@pytest.mark.parametrize("fault", ["operands_f32", "no_recurrent"])
+def test_pu_chain_controls_rejected(gen, fault):
+    """Faults the limits must see in bf16 at the lifter's serving call:
+    the matrix operands left in f32 (not rounded to bf16), and layer 1's
+    recurrent product dropped. Each reads outside `TOL` where the kernel
+    reads inside."""
+    dt = torch.bfloat16
+    fh, gp, w0, cell1 = _pu_inputs(gen, 32, 15, 512, dt, views=True)
+    ref = pu_kernel.pu_chain_plain(fh, gp, w0, cell1)
+    _close(pu_kernel.pu_chain_fused(fh, gp, w0, cell1), ref,
+           pu_kernel.TOL[dt])
+    if fault == "operands_f32":
+        faulty = pu_kernel.pu_chain_plain(fh, gp, w0.float(), {
+            n: {"kernel": c["kernel"].float(), "bias": c["bias"]}
+            for n, c in cell1.items()})
+    else:
+        faulty = pu_kernel.pu_chain_plain(fh, gp, w0, dict(cell1, h2h={
+            "kernel": torch.zeros_like(cell1["h2h"]["kernel"]),
+            "bias": cell1["h2h"]["bias"]}))
+    assert _outside([faulty], [ref], pu_kernel.TOL[dt])
 
 
 def test_pu_chain_refusals(gen):
@@ -297,12 +416,6 @@ def _plain_vjp_rows(leaves, ct, **faults):
     return [dfh, dgp, dw0.t()] + [
         x for n in ("x2f", "x2h", "h2h")
         for x in (d1[n]["kernel"].t(), d1[n]["bias"])]
-
-
-def _outside(got, want, tol):
-    """Some gradient of ``got`` reads outside ``tol`` against ``want``."""
-    return any(m > tol[0] or r > tol[1] for m, r in
-               (kernel_errors(g, w)[1:] for g, w in zip(got, want)))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -542,6 +655,67 @@ def test_fused_layer1_matches_plain(gen, n_blocks, shape, dtype):
            fl.TOL[x.dtype])
 
 
+def _one_scale_per_batch(x, w_q, w_scale, bias):
+    """Layer1 with one dynamic int8 scale a conv for the whole batch (the
+    generic `quantized_conv`) instead of one an image."""
+    c = x.shape[-1]
+    act = res = x.float()
+    for i in range(w_q.shape[0]):
+        w = w_q[i].reshape(3, 3, c, c).permute(3, 2, 0, 1)
+        out = quantized_conv(act, w, w_scale[i], 1, 1, bias[i])
+        act = torch.relu(out if i % 2 == 0 else out + res)
+        res = act if i % 2 else res
+    return act.to(x.dtype)
+
+
+def _one_scale_per_band(x, w_q, w_scale, bias):
+    """Layer1 with one scale a block's run of pixels (its rows) instead of
+    one an image: the fault a cluster design can make."""
+    n, h, w, c = x.shape
+    pb = fl.cluster_geometry(h, w)["pixels"]
+    act = res = x.float()
+    for i in range(w_q.shape[0]):
+        band = act.reshape(n, -1, pb * c).abs().amax(dim=2)
+        a_scale = (torch.clamp_min(band, 1e-12) / f32_scalar(act, 127.0)
+                   ).repeat_interleave(pb, dim=1).reshape(n, h, w, 1)
+        codes = torch.round(act / a_scale).clamp_(-127, 127).to(torch.int8)
+        cols, _ = im2col(codes, 3, 1, 1)
+        acc = int8_matmul(cols, w_q[i].t()).reshape(n, h, w, c)
+        out = acc.float() * (a_scale * w_scale[i]) + bias[i]
+        act = torch.relu(out if i % 2 == 0 else out + res)
+        res = act if i % 2 else res
+    return act.to(x.dtype)
+
+
+def _residual_dropped(x, w_q, w_scale, bias):
+    """Layer1 with the second block's residual dropped."""
+    block1 = fl.fused_layer1_plain(x.float(), w_q[:2], w_scale[:2], bias[:2])
+    conv3 = fl.fused_layer1_plain(block1, w_q[2:3], w_scale[2:3], bias[2:3])
+    return fl.fused_layer1_plain(conv3, w_q[3:], w_scale[3:], bias[3:]
+                                 ).to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fault", [_one_scale_per_batch, _one_scale_per_band,
+                                   _residual_dropped],
+                         ids=["one_scale_per_batch", "one_scale_per_band",
+                              "residual_dropped"])
+def test_fused_layer1_controls_rejected(gen, fault, dtype):
+    """Faults the limits must see at the serving call, one net's 64 images
+    of 64 x 64 through layer1's two blocks, image i scaled by 1 + i/8 so
+    that the images' scales differ: one activation scale for the whole
+    batch, one for each block's run of pixels, the second block's
+    residual dropped. Each reads outside `TOL` where the kernel reads
+    inside."""
+    packed = _packed(2, seed=2)
+    ramp = 1 + torch.arange(64, device="cuda")[:, None, None, None] / 8
+    x = (torch.randn(64, 64, 64, 64, generator=gen, device="cuda") * ramp
+         ).to(getattr(torch, dtype))
+    ref = fl.fused_layer1_plain(x, *packed)
+    _close(_fused(x, packed), ref, fl.TOL[x.dtype])
+    assert _outside([fault(x, *packed)], [ref], fl.TOL[x.dtype])
+
+
 def test_fused_layer1_zero_and_outlier_images(gen):
     """An all-zero image takes a_scale = 1e-12/127 and gives relu(bias)
     chains; an outlier image changes nothing in its neighbours."""
@@ -763,24 +937,35 @@ def test_bn_act_every_root(gen):
                                    _bits(E.bn_act_plain(x, bn)))
 
 
+# resnet50's layer1 calls at the serving batch: a bottleneck's last conv
+# with the block input added, and its inner convs
+LAYER1_CALLS = [((64, 64, 64, 256), True), ((64, 64, 64, 64), False)]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_bn_act_controls_rejected(gen, dtype):
-    """Faults the bit-for-bit check must see, at resnet50's layer1 shape:
+@pytest.mark.parametrize("shape,residual", LAYER1_CALLS)
+def test_bn_act_controls_rejected(gen, shape, residual, dtype):
+    """Faults the bit-for-bit check must see, at resnet50's layer1 calls:
     (x - mean) * inv + bias contracted into one FMA (the product exact in
-    f64, the sum rounded once) and, in bf16, the residual added to the
-    BatchNorm's f32 value before its rounding (in f32 that rounding is
-    none)."""
+    f64, the sum rounded once) and, in bf16, the product rounded to bf16
+    before + bias, and the residual added to the BatchNorm's f32 value
+    before its rounding (in f32 that rounding is none)."""
     dt = getattr(torch, dtype)
-    shape = (64, 64, 64, 256)
     x, r = (torch.randn(shape, generator=gen, device="cuda").to(dt)
             for _ in range(2))
+    r = r if residual else None
     bn = _bn_module(shape[-1], gen)
     with torch.no_grad():
         inv = torch.rsqrt(bn.running_var + E.BN_EPS) * bn.weight
         centred = x.float() - bn.running_mean
         fma = (centred.double() * inv.double() + bn.bias.double()).float()
-        faults = {"contracted FMA": torch.relu(fma.to(dt) + r)}
+        faults = {"contracted FMA": fma.to(dt)}
         if dt == torch.bfloat16:
+            faults["product rounded"] = ((centred * inv).to(dt).float()
+                                         + bn.bias).to(dt)
+        faults = {name: torch.relu(f if r is None else f + r)
+                  for name, f in faults.items()}
+        if dt == torch.bfloat16 and residual:
             faults["residual before rounding"] = torch.relu(
                 centred * inv + bn.bias + r.float()).to(dt)
         got = _bn_launch(x, bn, r)
@@ -788,6 +973,16 @@ def test_bn_act_controls_rejected(gen, dtype):
         for name, fault in faults.items():
             max_abs, _, _ = kernel_errors(got, fault)
             assert max_abs > 0, name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,residual", LAYER1_CALLS)
+def test_bn_act_kernel_resources(gen, shape, residual, dtype):
+    """At resnet50's layer1 calls: a block fits an SM and nothing spills
+    to local memory."""
+    res = E.kernel_resources(getattr(torch, dtype), int(residual),
+                             math.prod(shape), shape[-1])
+    assert res["blocks_per_sm"] >= 1 and res["local_bytes"] == 0, res
 
 
 def test_bn_act_refusals(gen):
@@ -864,30 +1059,24 @@ def test_bn_act_predictor_bit_for_bit(gen, monkeypatch, model,
                                       per_request):
     """A whole bf16 `Predictor` on the card: the heatmap stack and the
     pose with kernel E equal those of the same nets with the plain
-    sequence put in its place, bit for bit; a request counts
-    ``bn.fused`` 34 (resnet18) or 98 (resnet50), the plain run none."""
+    sequence put in its place, bit for bit; a request launches kernel E
+    34 times (resnet18) or 98 (resnet50), the plain run never."""
     from egotap_tpu_torch.models import resnet
     from egotap_tpu_torch.serving import Predictor
     pred = Predictor(bf16=True, device="cuda", seed=0, model_name=model)
     rgb = torch.randn(4, 2, 256, 256, 3, generator=gen, device="cuda")
 
     def run():
-        profiling.reset()
-        profiling.enable()
-        try:
-            pose = pred(rgb)
-            counts = profiling.counters().get("serve.request", {})
-        finally:
-            profiling.disable()
-            profiling.reset()
+        before = launch_counts()["bn_act"]
+        pose = pred(rgb)
+        launches = launch_counts()["bn_act"] - before
         with torch.no_grad():
             stack = pred._heatmap_stack(rgb)
-        return pose, stack, {k: v for k, v in counts.items()
-                             if k.startswith("bn.")}
-    pose, stack, counts = run()
-    assert counts == {"bn.fused": per_request}
+        return pose, stack, launches
+    pose, stack, launches = run()
+    assert launches == per_request
     monkeypatch.setattr(resnet, "bn_act", E.bn_act_plain)
-    plain_pose, plain_stack, plain_counts = run()
-    assert plain_counts == {}
+    plain_pose, plain_stack, plain_launches = run()
+    assert plain_launches == 0
     assert torch.equal(stack, plain_stack)
     assert (pose == plain_pose).all()
