@@ -27,7 +27,10 @@ Exits non-zero, printing no result, when there is no card. Phases:
    packed attention and B on the unpacked layout, C PU chain, D fused
    int8 layer1 (also timed against the unfused int8 layer1 it
    replaces), E eval BatchNorm + residual + ReLU at resnet50's layer1
-   shapes (its device time held within 1.5 times its byte bound).
+   shapes (its device time held within 1.5 times its byte bound), F's
+   pack and epilogue at each int8 product of the r18 int8 serving
+   forward in bf16, beside their plain twins, summed over a request
+   (their device time held within 2.5 times their byte bound).
 3. Full path: a full-width `Predictor` (UnrealEgo, resnet18, Grid-ViT
    width 1024 x 3 layers, PU hidden 512) with seeded random weights
    serves 3 requests of (32, 2, 256, 256, 3) in bf16, in f32 and in the
@@ -35,13 +38,16 @@ Exits non-zero, printing no result, when there is no card. Phases:
    lifter, static scales calibrated on 2 batches of rgb + 0.1 noise);
    the launch counters must rise by exactly 6 (upsample), 3 (attention)
    and 1 (PU chain) per forward, and kernel E's by 34 (bf16, f32) or 2
-   (int8: the stems' BatchNorms); batch-2 f32 requests are cross-checked
+   (int8: the stems' BatchNorms), F's by 72 packs and 78 epilogues
+   (int8); batch-2 f32 requests are cross-checked
    against the same port on the CPU (the int8 one under the card's
    static scales, free-running and with the card's int8 codes held
-   against the CPU's and replaced by them, `CodeTape`), the bf16 poses
+   against the CPU's and replaced by them, `CodeTape`, which runs the
+   card's int8 products as the plain sequence), the bf16 poses
    against the f32 ones and the int8 poses against the bf16 ones.
 4. Entry points off the Predictor's path: the int8 ResNet encoder with
-   the fused layer1 (kernel D once per forward, E once: the stem) on
+   the fused layer1 (kernel D once per forward, E once: the stem, F 13
+   times: layer2-4's convs of 128 channels or more, dynamic scales) on
    (64, 256, 256, 3)
    bf16 against the unfused int8 encoder, and one call of the unpacked
    attention wrapper at the Grid-ViT's (32, 8, 576, 128) in bf16 and
@@ -165,14 +171,15 @@ Exits non-zero, printing no result, when there is no card. Phases:
    devices=[cuda:0] * 4)` in f32, bf16 and calibrated int8 at batch 32
    and a ragged 31 against the same predictor unsharded (1e-5, and
    phase 3's bf16 and int8 budgets), launches a forward A 12, B 12, C 2,
-   E 68 (int8: 4);
+   E 68 (int8: 4, and F 156 packs and 180 epilogues: the split Grid-ViT's
+   products run on F as the unsplit ones do, `parallel/tp.py`);
    the bf16 forward's time unsharded and over 1 x 2 and 2 x 2 shards.
    Each part's wall time.
 11. The Bottleneck nets and the fused net at full width. (a) resnet50
    `Predictor`s (Grid-ViT 1024 x 3 x 8 heads, PU hidden 512, seeded
    weights) serve 3 requests of (32, 2, 256, 256, 3) in bf16, f32 and
-   calibrated int8, launches A 6, B 3, C 1, D 0, E 98 a forward (a
-   resnet101 forward E 200); bf16 vs f32
+   calibrated int8, launches A 6, B 3, C 1, D 0, E 98 a forward (int8:
+   F 138 packs and 144 epilogues; a resnet101 forward E 200); bf16 vs f32
    and int8 vs bf16 within phase 3's limits; the f32 heatmap stack at
    batch 1 on 128 x 128 images against the same nets on the CPU (1e-4 of
    max); a resnet101 bf16 `Predictor` likewise (3 requests). (b)
@@ -193,7 +200,9 @@ Exits non-zero, printing no result, when there is no card. Phases:
    resnet18 encoder, f32 card vs CPU (1e-4 of max); the S2D stem vs the
    plain stem of the same weight on the card (1e-5 of max), both timed.
    Each part's wall time.
-12. One JSON line with every kernel's numbers (with each bf16 kernel's
+12. One JSON line with every kernel's numbers (F's two entry points
+   summed over a request, launches those of phase 3's int8 forwards;
+   each bf16 kernel's
    launches per training and eval step, A's per stage-1 step, the
    backward recompute time a launch of A (stage 1) and B, E's launches
    in the resnet18 and resnet50 serving forwards, C's backward
@@ -212,6 +221,7 @@ Exits non-zero, printing no result, when there is no card. Phases:
 import functools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -494,6 +504,81 @@ def bn_act_rows(torch, card, g):
     return rows
 
 
+# kernel F at every int8 product of the r18 int8 serving forward at batch
+# 32 (bf16), its device time a request within INT8_PACK_BOUND_RATIO times
+# its byte bound
+INT8_PACK_BOUND_RATIO = 2.5
+
+
+def int8_pack_rows(torch, card, g):
+    """Kernel F beside its plain twins at `int8_products()` in bf16 (each
+    entry point's readings, times and device time of a launch; the bound:
+    the pack's rows written and x read once, the epilogue's int32 product
+    read and its output written once); rows {("int8_pack", bf16),
+    ("int8_epilogue", bf16)}: sums over a request, the worst readings."""
+    from egotap_tpu_torch.ops import int8_pack as F8
+    from egotap_tpu_torch.ops.quant import quantize_weights
+    dt = torch.bfloat16
+    hbm = card_peaks()["hbm_bytes_per_s"]
+    tot = {key: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                 "device_ms": 0.0} for key in ("int8_pack", "int8_epilogue")}
+    for (shape, kernel, stride, padding, n_out), (count, packs) \
+            in int8_products().items():
+        # a conv's input is a ReLU's output (half of it zeros), a dense
+        # product's a LayerNorm's or a projection's
+        x = 40 * torch.randn(shape, generator=g, device="cuda")
+        x = (torch.relu(x) if shape[1:3] != (1, 1) else x).to(dt)
+        a = torch.tensor(7.0, device="cuda")
+        w_q, w_scale = quantize_weights(torch.randn(
+            n_out, shape[-1] * kernel * kernel, generator=g, device="cuda"))
+        bias = torch.randn(n_out, generator=g, device="cuda")
+        rows, (ho, wo) = F8.pack(x, a, kernel, stride, padding)
+        m = shape[0] * ho * wo
+        acc = torch._int_mm(rows, F8.weight_rows(w_q).t())
+        label = f"int8 {tuple(shape)} k{kernel} s{stride} N{n_out}"
+        calls = {
+            "int8_pack": (lambda: F8.pack(x, a, kernel, stride, padding),
+                          lambda: F8.pack_plain(x, a, kernel, stride,
+                                                padding),
+                          "pack_kernel", packs,
+                          rows.numel() + x.numel() * x.element_size()),
+            "int8_epilogue": (
+                lambda: F8.epilogue(acc, m, n_out, a, w_scale, bias, dt),
+                lambda: F8.epilogue_plain(acc, m, n_out, a, w_scale, bias,
+                                          dt),
+                "epilogue_kernel", count,
+                4 * acc.numel() + m * n_out * x.element_size())}
+        parts = []
+        for key, (fn, plain, kname, times, nbytes) in calls.items():
+            got, want = fn(), plain()
+            got, want = (got[0], want[0]) if key == "int8_pack" \
+                else (got, want)
+            worst(tot[key], reading(f"{key} {label}", got.float(),
+                                    want.float(), F8.TOL[dt]))
+            ms, pms = time_ms(torch, fn), time_ms(torch, plain)
+            dms = device_ms(torch, fn, kname)
+            bound = 1e3 * nbytes / hbm
+            parts.append(f"{key} {ms:.4f} ms (device {dms:.4f} ms, "
+                         f"{dms / bound:.2f} x the bound {bound:.4f}), "
+                         f"plain {pms:.4f} ms")
+            for k, v in (("ms", ms), ("plain_ms", pms), ("bound_ms", bound),
+                         ("device_ms", dms)):
+                tot[key][k] += times * v
+        print(f"    {label} x {count}: {'; '.join(parts)} [{card}]")
+    rows = {}
+    for key, t in tot.items():
+        print(f"  {key} a request: device {t['device_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms (bytes), plain {t['plain_ms']:.4f} ms "
+              f"[{card}]")
+        rows[(key, dt)] = dict(t, library_ms=None, bound_by="bytes")
+    device = sum(t["device_ms"] for t in tot.values())
+    bound = sum(t["bound_ms"] for t in tot.values())
+    if not device <= INT8_PACK_BOUND_RATIO * bound:
+        raise AssertionError(f"int8 pack and epilogue: {device:.4f} ms a "
+                             f"request, {device / bound:.2f} x their bound")
+    return rows
+
+
 def phase_kernels(torch, F, card):
     from egotap_tpu_torch.models.layers import BN_EPS
     from egotap_tpu_torch.models.resnet import BasicBlock
@@ -636,6 +721,9 @@ def phase_kernels(torch, F, card):
 
     # ---- E: eval BatchNorm, residual add and ReLU at resnet50's layer1
     rows.update(bn_act_rows(torch, card, g))
+
+    # ---- F: the passes around the int8 products of the int8 serving path
+    rows.update(int8_pack_rows(torch, card, g))
     return rows
 
 
@@ -662,12 +750,41 @@ def read_head_counts():
 # stem's alone (its basic blocks fold theirs)
 E_PER_NET = 17
 E_PER_INT8_NET = 1
+
+
+@functools.lru_cache(maxsize=None)
+def int8_products(model_name="resnet18"):
+    """The int8 products of one serving forward of the configuration with
+    ``model_name`` at batch 32, read on the meta device
+    (`tests/test_torch_kernel_launch.py:int8_serving_products`): {(x's
+    NHWC shape, kernel, stride, padding, N): [products, packs]}."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:       # as pytest puts it there (no package)
+        sys.path.insert(0, tests)
+    from test_torch_kernel_launch import int8_serving_products
+    return int8_serving_products(model_name=model_name)
+
+
+def f_per_int8_forward(model_name="resnet18"):
+    """Kernel F's launches per int8 serving forward: an epilogue a
+    product, a pack a quantized input (the Grid-ViT's q, k and v share one
+    `QuantStub`'s codes)."""
+    counts = int8_products(model_name).values()
+    return {"int8_pack": sum(packs for _, packs in counts),
+            "int8_epilogue": sum(products for products, _ in counts)}
+
+
 # launches per Predictor forward (the two resnet18 heatmap nets), in
-# every precision but kernel E's in int8 (`E_PER_INT8_NET` a net)
+# every precision but kernel E's and F's in int8 (`E_PER_INT8_NET` a net)
 PER_FORWARD = {"upsample": 6, "attention": 3, "pu_chain": 1,
                "attention_unpacked": 0, "fused_layer1": 0,
-               "pu_chain_backward": 0, "bn_act": 2 * E_PER_NET}
-PER_INT8_FORWARD = {**PER_FORWARD, "bn_act": 2 * E_PER_INT8_NET}
+               "pu_chain_backward": 0, "bn_act": 2 * E_PER_NET,
+               "int8_pack": 0, "int8_epilogue": 0}
+
+
+def per_int8_forward():
+    return {**PER_FORWARD, "bn_act": 2 * E_PER_INT8_NET,
+            **f_per_int8_forward()}
 
 
 def serve(torch, pred, rgb_dev, label, card, requests=3,
@@ -705,11 +822,17 @@ class CodeTape:
     code array it makes (the CPU forward); in ``force`` mode it holds the
     card's codes at each call against the next kept ones (same shape, at
     most FLIP_RATE of them one step off) and goes on with the CPU's, so a
-    code flipped by float sums in another order cannot cascade."""
+    code flipped by float sums in another order cannot cascade. While it
+    runs, the card's int8 products are the plain sequence in kernel F's
+    place (bit for bit the same, `tests/test_torch_kernels_cuda.py`), so
+    that their codes pass through `quantize_activation`."""
 
     def __init__(self):
-        from egotap_tpu_torch.ops import quant
+        from egotap_tpu_torch.ops import int8_pack, quant
         self.quant, self.real = quant, quant.quantize_activation
+        self.int8_pack = int8_pack
+        self.kernel_f = {n: getattr(int8_pack, n)
+                         for n in ("conv", "dense", "quantize")}
         self.codes, self.used, self.flips, self.total = [], 0, 0, 0
         self.worst = 0.0                 # the largest share of one call
 
@@ -736,12 +859,28 @@ class CodeTape:
                                  f"{int(diff.max())}")
         return want, scale
 
+    def plain(self, name):
+        """The plain sequence for kernel F's entry ``name``, calling
+        `quantize_activation` as it stands."""
+        q = self.quant
+        return {"conv": lambda x, wq, w_scale, stride, padding, bias, a_scale,
+                w_rows: q.conv_plain(x, wq, w_scale, stride, padding, bias,
+                                     a_scale),
+                "dense": lambda x, wq, w_scale, bias, a_scale, pre_q, w_rows:
+                q.dense_plain(x, wq, w_scale, bias, a_scale, pre_q),
+                "quantize": lambda x, a_scale: q.quantize_activation(
+                    x, a_scale)}[name]
+
     def run(self, mode, fn, *args):
         self.quant.quantize_activation = getattr(self, mode)
+        for name in self.kernel_f:
+            setattr(self.int8_pack, name, self.plain(name))
         try:
             return fn(*args)
         finally:
             self.quant.quantize_activation = self.real
+            for name, entry in self.kernel_f.items():
+                setattr(self.int8_pack, name, entry)
 
 
 def max_dev(got, ref):
@@ -795,7 +934,7 @@ def phase_full_path(torch, card):
           f"{time.perf_counter() - t0:.2f} s, static scales: "
           f"{pred._has_static_scales()}")
     launches["int8"], outputs["int8"] = serve(
-        torch, pred, rgb_dev, "int8", card, per_forward=PER_INT8_FORWARD)
+        torch, pred, rgb_dev, "int8", card, per_forward=per_int8_forward())
     del pred
     dev, scale = max_dev(outputs["int8"], outputs["bf16"])
     print(f"  int8 vs bf16 pose on the card: max_abs_dev={dev:.3e} "
@@ -837,6 +976,12 @@ def phase_full_path(torch, card):
     return launches
 
 
+# kernel F's packs (and epilogues) a forward of the fused-layer1 int8
+# encoder without static scales: layer2's conv2s and its second block's
+# conv1, and every conv of layer3 and layer4 (128 input channels or more)
+F_FUSED_ENCODER = 13
+
+
 def phase_entry_points(torch, card):
     """The encoder with the fused int8 layer1, and the unpacked attention
     wrapper, each through its own entry point."""
@@ -863,9 +1008,13 @@ def phase_entry_points(torch, card):
     print(f"  fused-layer1 encoder, one forward of {tuple(x.shape)} bf16: "
           f"launches {counts}")
     if counts != dict(PER_FORWARD, fused_layer1=1, upsample=0, attention=0,
-                      pu_chain=0, bn_act=E_PER_INT8_NET):
+                      pu_chain=0, bn_act=E_PER_INT8_NET,
+                      int8_pack=F_FUSED_ENCODER,
+                      int8_epilogue=F_FUSED_ENCODER):
         raise AssertionError("the fused encoder must launch kernel D once, "
-                             "E once (the stem) and nothing else")
+                             "E once (the stem), F's pack and epilogue once "
+                             "a conv of layer2-4 with 128 channels or more, "
+                             "and nothing else")
     for i in range(2, 6):
         a, b = got[i].float(), ref[i].float()
         rel = float((a - b).norm() / b.norm())
@@ -913,7 +1062,8 @@ TIMED_STEPS = 10
 # (the frozen nets run train-mode BatchNorm in a training step: no E)
 PER_TRAIN_STEP = {"upsample": 6, "attention": 3, "pu_chain": 1,
                   "attention_unpacked": 0, "fused_layer1": 0,
-                  "pu_chain_backward": 1, "bn_act": 0}
+                  "pu_chain_backward": 1, "bn_act": 0, "int8_pack": 0,
+                  "int8_epilogue": 0}
 # f32 step on the card vs on the CPU from the same weights and batch:
 # losses within TRAIN_LOSS_RTOL (cos_sim, a sum of 15 bone cosines that
 # cancels to near 0 at random weights, against its largest value), and
@@ -1261,7 +1411,7 @@ def phase_eval(torch, card):
     out = task.eval_step(prepared, batch)
     counts = read_counts()
     print(f"  launches in one eval step: {counts}")
-    if counts != PER_INT8_FORWARD:
+    if counts != per_int8_forward():
         raise AssertionError("the eval step must launch A, B, C and E as "
                              "the int8 serving forward does")
     pred = Predictor(cfg, state.frozen["heatmap"].state_dict(),
@@ -1308,7 +1458,8 @@ STAGE1_PRESETS = ("unrealego_heatmap_joint", "unrealego_heatmap_limb")
 # forward; A's backward recomputes the plain version (profiler range)
 PER_TRAIN1_STEP = {"upsample": 3, "attention": 0, "pu_chain": 0,
                    "attention_unpacked": 0, "fused_layer1": 0,
-                   "pu_chain_backward": 0, "bn_act": 0}
+                   "pu_chain_backward": 0, "bn_act": 0, "int8_pack": 0,
+                   "int8_epilogue": 0}
 # the targets rendered on the card vs on the CPU: the same operations on
 # both, f32 rounding apart; relative where a value exceeds 1 (pixel
 # lengths reach about 90, where one ulp is 7.6e-6)
@@ -2233,13 +2384,26 @@ BRIDGE_STEPS = 2
 # heatmap nets (A, 3 a net) and PU chain (C), and its Grid-ViT's 3 blocks
 # on each model shard (B at 4 heads)
 TP_DATA, TP_MODEL = 2, 2
+VIT_BLOCKS = 3
 PER_TP_FORWARD = {"upsample": 6 * TP_DATA,
-                  "attention": 3 * TP_MODEL * TP_DATA,
+                  "attention": VIT_BLOCKS * TP_MODEL * TP_DATA,
                   "pu_chain": TP_DATA, "attention_unpacked": 0,
                   "fused_layer1": 0, "pu_chain_backward": 0,
-                  "bn_act": PER_FORWARD["bn_act"] * TP_DATA}
-PER_TP_INT8_FORWARD = {**PER_TP_FORWARD,
-                       "bn_act": PER_INT8_FORWARD["bn_act"] * TP_DATA}
+                  "bn_act": PER_FORWARD["bn_act"] * TP_DATA, "int8_pack": 0,
+                  "int8_epilogue": 0}
+
+
+def per_tp_int8_forward():
+    """Launches per sharded int8 forward. Kernel F in a replica: the
+    unsharded forward's, but a split Grid-ViT block packs each
+    row-parallel product's input on every model shard and runs an
+    epilogue for each column part (`parallel/tp.py`): 2 packs and 4
+    epilogues a block more for each model shard past the first."""
+    f = f_per_int8_forward()
+    more = VIT_BLOCKS * (TP_MODEL - 1)
+    return {**PER_TP_FORWARD, "bn_act": 2 * E_PER_INT8_NET * TP_DATA,
+            "int8_pack": (f["int8_pack"] + 2 * more) * TP_DATA,
+            "int8_epilogue": (f["int8_epilogue"] + 4 * more) * TP_DATA}
 # sharded against unsharded pose, relative to max: f32 (row-parallel
 # partial sums in another order), then phase 3's bf16 and int8 budgets
 SHARD_TOL = {"f32": 1e-5, "bf16": BF16_POSE_TOL, "int8": INT8_POSE_TOL}
@@ -2723,7 +2887,7 @@ def phase_sharded_serving(torch, F, card):
         got = pred(rgb)
         counts[label], heads[label] = read_counts(), read_head_counts()
         want_heads = {8 // TP_MODEL: PER_TP_FORWARD["attention"]}
-        per_forward = (PER_TP_INT8_FORWARD if label == "int8"
+        per_forward = (per_tp_int8_forward() if label == "int8"
                        else PER_TP_FORWARD)
         if counts[label] != per_forward or heads[label] != want_heads:
             raise AssertionError(
@@ -2795,7 +2959,8 @@ FUSED_ATOL_F32, FUSED_TOL_BF16 = 2e-4, 2e-2
 E_PER_BOTTLENECK_FORWARD = {"resnet50": 2 * 49, "resnet101": 2 * 100}
 PER_FUSED_FORWARD = {"upsample": 3, "attention": 0, "pu_chain": 0,
                      "attention_unpacked": 0, "fused_layer1": 0,
-                     "pu_chain_backward": 0, "bn_act": E_PER_NET}
+                     "pu_chain_backward": 0, "bn_act": E_PER_NET,
+                     "int8_pack": 0, "int8_epilogue": 0}
 # the legacy encoder / decoder and the S2D-stem encoder, f32 card vs CPU,
 # relative to max|cpu| (phase 3's limit); the S2D stem vs the plain stem
 # of the same weight on the card (the same products, summed in another
@@ -2844,7 +3009,9 @@ def bottleneck_serving(torch, card):
         launches[label], outputs[label] = serve(
             torch, pred, rgb_dev, f"{name} {precision}", card,
             per_forward=dict(PER_FORWARD,
-                             bn_act=E_PER_BOTTLENECK_FORWARD[name]))
+                             bn_act=E_PER_BOTTLENECK_FORWARD[name],
+                             **(f_per_int8_forward(name) if label == "int8"
+                                else {})))
         if label == "f32":
             got = pred.heatmaps(small.cuda())
             cpu_nets = [copy.deepcopy(n).cpu() for n in pred.nets[:2]]
@@ -3163,6 +3330,12 @@ def main() -> int:
                          "egotap_tpu/ops/fused_layer1.py:121"),
         "bn_act": ("bn_act", "cuda", "egotap_tpu_torch/csrc/bn_act.cu",
                    "none (XLA fuses the eval BatchNorm, add and ReLU)"),
+        "int8_pack": ("int8_pack", "cuda",
+                      "egotap_tpu_torch/csrc/int8_pack.cu",
+                      "none (XLA fuses the quantise and im2col)"),
+        "int8_epilogue": ("int8_epilogue", "cuda",
+                          "egotap_tpu_torch/csrc/int8_pack.cu",
+                          "none (XLA fuses the dequantise)"),
     }
     kernels = []
     for (key, dt), count in launches.items():

@@ -79,7 +79,7 @@ class _QConvParams(QConv):
     and int8 weights here. Its own forward runs in training mode only,
     on the unfolded weights (JAX `_QConvParams` / `QConv`)."""
 
-    cached = ("w_q", "w_scale", "folded_bias")
+    cached = ("w_q", "w_scale", "w_rows", "folded_bias")
 
     def prequantize(self) -> None:
         """Nothing: the block fills the cache with folded weights."""
@@ -184,7 +184,7 @@ class BasicBlock(_Block):
         if conv.w_q is None:
             self.prequantize()
         return quantized_conv(inp, conv.w_q, conv.w_scale, stride, pad,
-                              conv.folded_bias, a_scale)
+                              conv.folded_bias, a_scale, conv.rows_for(inp))
 
     def _folded_inference(self, x: torch.Tensor) -> torch.Tensor:
         """BN-folded int8 block (JAX `BasicBlock._folded_inference`)."""

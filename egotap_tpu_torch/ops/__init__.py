@@ -15,7 +15,9 @@ inference) has no backward: its wrapper refuses inputs that need a
 gradient (`refuse_grad`) instead of returning an output cut off from
 autograd. On the CPU the plain versions differentiate. Kernel E (eval
 BatchNorm, residual add and ReLU) is the forward of `bn_act._KernelE`
-when a gradient is asked for; its backward, as A's, is `plain_vjp`.
+when a gradient is asked for, and kernel F (the passes around an int8
+product) of `int8_pack._KernelF`; their backward, as A's, is
+`plain_vjp`.
 """
 
 from __future__ import annotations
@@ -67,17 +69,20 @@ def kernel_errors(got: torch.Tensor, ref: torch.Tensor):
 
 
 def launch_counts(reset: bool = False) -> dict:
-    """Each kernel wrapper's count of its launches, by kernel, and kernel
+    """Each kernel wrapper's count of its launches, by kernel (kernel F's
+    two entry points as ``int8_pack`` and ``int8_epilogue``), and kernel
     C's backward launches as ``pu_chain_backward`` (zeroed first with
     ``reset``)."""
     from egotap_tpu_torch.ops import (attention, bn_act, fused_layer1,
-                                      pu_kernel, upsample)
+                                      int8_pack, pu_kernel, upsample)
     wrappers = {"upsample": upsample.upsample2x_align_corners,
                 "attention": attention.multihead_attention_packed,
                 "pu_chain": pu_kernel.pu_chain_fused,
                 "attention_unpacked": attention.multihead_attention,
                 "fused_layer1": fused_layer1.fused_layer1_int8,
-                "bn_act": bn_act.bn_act}
+                "bn_act": bn_act.bn_act,
+                "int8_pack": int8_pack.pack,
+                "int8_epilogue": int8_pack.epilogue}
     if reset:
         for w in wrappers.values():
             w.launches = 0

@@ -48,6 +48,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                      "egotap_fused_layer1_occupancy": [_I] * 5 + [_VP]},
     "bn_act": {"egotap_bn_act": [_VP] * 11 + [_L] + [_I] * 3 + [_F, _VP],
                "egotap_bn_act_occupancy": [_I] * 2 + [_L, _I, _VP]},
+    "int8_pack": {"egotap_int8_pack": [_VP] * 3 + [_I] * 14 + [_VP],
+                  "egotap_int8_epilogue": [_VP] * 5 + [_I] * 6 + [_VP]},
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -16,7 +16,13 @@ Counterpart of `egotap_tpu/ops/quant.py`, same scheme and numerics:
 The int32 products go through ``torch._int_mm`` (one library integer
 GEMM, as the JAX package leaves them to XLA's ``dot_general``); a conv is
 an NHWC im2col in int8 (rows ordered ``(di * k + dj) * C + c``, the JAX
-HWIO kernel's reshape) times the packed weight. ``F.conv2d`` has no int8
+HWIO kernel's reshape) times the packed weight. On the CPU that is the
+plain sequence below (`conv_plain`, `dense_plain`); on the card
+`quantized_conv`, `quantized_dense` and `QuantStub` run kernel F
+(`ops/int8_pack.py`): one pack launch before the product and one
+epilogue after it, equal to the plain sequence bit for bit, on weight
+rows padded once, at the first product on the card (``w_rows``, beside
+``w_q``). ``F.conv2d`` has no int8
 path, and a float conv of the codes is not exact once a sum passes 2^24.
 Divisions by a constant divide by a tensor: on the card PyTorch turns a
 division by a Python float into a multiply by its reciprocal, which is
@@ -39,7 +45,7 @@ are non-persistent buffers, so reference checkpoints strict-load.
 
 Tracing (`utils/profiling.py`): `quantized_conv` runs in the span
 ``int8.conv``, `quantized_dense` and `QuantStub` in ``int8.dense``, and
-the integer product of `int8_matmul` (the library call alone, after its
+the integer product of `int_mm` (the library call alone, after its
 operands are padded and laid out) in ``int8.matmul``; under a profiler
 these are the ranges ``egotap.int8.*``. Counters of the innermost root
 span: ``int8.products`` (products run), ``int8.macs`` (M·N·K of each, the
@@ -86,31 +92,50 @@ def quantize_activation(x: torch.Tensor,
     None, the dynamic ``max(max|x|, 1e-12) / 127``."""
     xf = x.float()
     if a_scale is None:
-        a_scale = torch.clamp_min(xf.abs().amax(), 1e-12) \
-            / f32_scalar(xf, QMAX)
+        a_scale = dynamic_scale(xf)
     xq = torch.round(xf / a_scale).clamp_(-127, 127).to(torch.int8)
     return xq, a_scale
+
+
+def dynamic_scale(x: torch.Tensor) -> torch.Tensor:
+    """The dynamic activation scale of x: ``max(max|x|, 1e-12) / 127``,
+    0-d f32."""
+    xf = x.float()
+    return torch.clamp_min(xf.abs().amax(), 1e-12) / f32_scalar(xf, QMAX)
+
+
+def padded(m: int, k: int) -> Tuple[int, int]:
+    """(Mp, Kp): the rows and the row length that ``torch._int_mm`` takes
+    on the card for an (m, k) operand: K a multiple of 8, more than 16
+    rows (32 for 16 or fewer)."""
+    return (32 if m <= 16 else m), -(-k // 8) * 8
+
+
+def int_mm(a: torch.Tensor, b: torch.Tensor, m: int, n: int, k: int
+           ) -> torch.Tensor:
+    """``torch._int_mm(a, b)`` of operands already padded (`padded`),
+    counted as the (m, n, k) product it holds (``int8.products``,
+    ``int8.macs`` = M·N·K before padding) and run in the span
+    ``int8.matmul``."""
+    profiling.count("int8.products")
+    profiling.count("int8.macs", m * n * k)
+    with profiling.span("int8.matmul"):
+        return torch._int_mm(a, b)
 
 
 def int8_matmul(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
     """(M, K) int8 times (N, K) int8 transposed -> (M, N) int32, exact.
 
-    ``torch._int_mm`` wants K and N multiples of 8 and M > 16 on the
-    card; the operands are zero-padded to that (zeros add nothing) and
-    the result is cut back. B goes in column-major."""
+    The operands are zero-padded to what `int_mm` takes (zeros add
+    nothing) and the result is cut back. B goes in column-major."""
     m, k = a.shape
-    n = b_t.shape[0]
-    profiling.count("int8.products")
-    profiling.count("int8.macs", m * n * b_t.shape[1])
-    kp = -(-k // 8) * 8
-    pm = 32 - m if m <= 16 else 0
-    if kp != k or pm:
-        a = F.pad(a, (0, kp - k, 0, pm))
-    if b_t.shape[1] != kp or n % 8:
-        b_t = F.pad(b_t, (0, kp - b_t.shape[1], 0, (-n) % 8))
-    a, b = a.contiguous(), b_t.contiguous().t()
-    with profiling.span("int8.matmul"):
-        out = torch._int_mm(a, b)
+    n, kb = b_t.shape
+    mp, kp = padded(m, k)
+    if (mp, kp) != (m, k):
+        a = F.pad(a, (0, kp - k, 0, mp - m))
+    if kb != kp or n % 8:
+        b_t = F.pad(b_t, (0, kp - kb, 0, (-n) % 8))
+    out = int_mm(a.contiguous(), b_t.contiguous().t(), m, n, kb)
     return out[:m, :n]
 
 
@@ -148,34 +173,66 @@ def dequantize(acc: torch.Tensor, a_scale: torch.Tensor,
     return out.to(dtype)
 
 
+def conv_plain(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
+               stride: int = 1, padding: int = 0,
+               bias: Optional[torch.Tensor] = None,
+               a_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`quantized_conv` as the plain sequence (the CPU path, and kernel F's
+    plain twin)."""
+    xq, a_scale = quantize_activation(x, a_scale)
+    cols, (ho, wo) = im2col(xq, wq.shape[-1], stride, padding)
+    acc = int8_matmul(cols, conv_weight_rows(wq))
+    out = dequantize(acc, a_scale, w_scale, bias, x.dtype)
+    return out.reshape(x.shape[0], ho, wo, -1)
+
+
+def dense_plain(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
+                bias: Optional[torch.Tensor] = None,
+                a_scale: Optional[torch.Tensor] = None,
+                pre_q: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> torch.Tensor:
+    """`quantized_dense` as the plain sequence (the CPU path, and kernel
+    F's plain twin)."""
+    xq, a_scale = pre_q if pre_q is not None \
+        else quantize_activation(x, a_scale)
+    acc = int8_matmul(xq.reshape(-1, xq.shape[-1]), wq)
+    out = dequantize(acc, a_scale, w_scale, bias, x.dtype)
+    return out.reshape(*x.shape[:-1], -1)
+
+
 def quantized_conv(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
                    stride: int = 1, padding: int = 0,
                    bias: Optional[torch.Tensor] = None,
-                   a_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   a_scale: Optional[torch.Tensor] = None,
+                   w_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """NHWC int8 conv of x with an OIHW int8 weight ``wq`` and its
     per-output ``w_scale`` (`quantize_weights`), dynamic or static
-    (``a_scale``) activation scale; returns x's dtype."""
+    (``a_scale``) activation scale; returns x's dtype. Kernel F on the card
+    (``w_rows``: `int8_pack.weight_rows(wq)`, made per call when None), the
+    plain sequence on the CPU."""
     with profiling.span("int8.conv"):
-        xq, a_scale = quantize_activation(x, a_scale)
-        cols, (ho, wo) = im2col(xq, wq.shape[-1], stride, padding)
-        acc = int8_matmul(cols, conv_weight_rows(wq))
-        out = dequantize(acc, a_scale, w_scale, bias, x.dtype)
-        return out.reshape(x.shape[0], ho, wo, -1)
+        if x.device.type == "cpu":
+            return conv_plain(x, wq, w_scale, stride, padding, bias, a_scale)
+        from egotap_tpu_torch.ops import int8_pack
+        return int8_pack.conv(x, wq, w_scale, stride, padding, bias, a_scale,
+                              w_rows)
 
 
 def quantized_dense(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
                     bias: Optional[torch.Tensor] = None,
                     a_scale: Optional[torch.Tensor] = None,
                     pre_q: Optional[Tuple[torch.Tensor, torch.Tensor]]
-                    = None) -> torch.Tensor:
+                    = None, w_rows: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
     """int8 ``x @ wq.T`` (``wq`` (out, in) int8, per-output ``w_scale``);
-    ``pre_q`` supplies already-quantized ``(xq, a_scale)``."""
+    ``pre_q`` supplies already-quantized ``(xq, a_scale)``. Kernel F on the
+    card (``w_rows`` as for `quantized_conv`), the plain sequence on the
+    CPU."""
     with profiling.span("int8.dense"):
-        xq, a_scale = pre_q if pre_q is not None \
-            else quantize_activation(x, a_scale)
-        acc = int8_matmul(xq.reshape(-1, xq.shape[-1]), wq)
-        out = dequantize(acc, a_scale, w_scale, bias, x.dtype)
-        return out.reshape(*x.shape[:-1], -1)
+        if x.device.type == "cpu":
+            return dense_plain(x, wq, w_scale, bias, a_scale, pre_q)
+        from egotap_tpu_torch.ops import int8_pack
+        return int8_pack.dense(x, wq, w_scale, bias, a_scale, pre_q, w_rows)
 
 
 class Calibrated:
@@ -205,11 +262,23 @@ class WeightCache:
     them empty, and loading parameters empties them, so they never go
     stale."""
 
-    cached: Tuple[str, ...] = ("w_q", "w_scale")
+    cached: Tuple[str, ...] = ("w_q", "w_scale", "w_rows")
 
     def _init_cache(self) -> None:
         for name in self.cached:
             self.register_buffer(name, None, persistent=False)
+
+    def rows_for(self, x: torch.Tensor) -> Optional[torch.Tensor]:
+        """``w_rows``, kernel F's layout of ``w_q``
+        (`int8_pack.weight_rows`), laid out at the first product off the
+        CPU and kept; None on the CPU, whose plain sequence reads
+        ``w_q``."""
+        if x.device.type == "cpu":
+            return None
+        if self.w_rows is None:
+            from egotap_tpu_torch.ops.int8_pack import weight_rows
+            self.w_rows = weight_rows(self.w_q)
+        return self.w_rows
 
     def _load_from_state_dict(self, *args, **kwargs):
         super()._load_from_state_dict(*args, **kwargs)
@@ -245,12 +314,13 @@ class QConv(WeightCache, Calibrated, nn.Conv2d):
             # a training step changes the weights: quantize them anew, as
             # the JAX QConv does without qparams (no cache to go stale)
             w_q, w_scale = quantize_weights(self.weight)
+            w_rows = None
         else:
             if self.w_q is None:
                 self.prequantize()
-            w_q, w_scale = self.w_q, self.w_scale
+            w_q, w_scale, w_rows = self.w_q, self.w_scale, self.rows_for(x)
         return quantized_conv(x, w_q, w_scale, self.stride[0],
-                              self.padding[0], self.bias, a_scale)
+                              self.padding[0], self.bias, a_scale, w_rows)
 
 
 class QDense(WeightCache, Calibrated, nn.Linear):
@@ -274,7 +344,7 @@ class QDense(WeightCache, Calibrated, nn.Linear):
         if self.w_q is None:
             self.prequantize()
         return quantized_dense(x, self.w_q, self.w_scale, self.bias, a_scale,
-                               pre_q)
+                               pre_q, self.rows_for(x))
 
 
 class QuantStub(Calibrated, nn.Module):
@@ -287,7 +357,17 @@ class QuantStub(Calibrated, nn.Module):
     def forward(self, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         with profiling.span("int8.dense"):
-            return quantize_activation(x, self.calib_or_static(x))
+            return quantize_input(x, self.calib_or_static(x))
+
+
+def quantize_input(x: torch.Tensor, a_scale: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`quantize_activation` of an input that several products share:
+    kernel F's pack on the card, the plain sequence on the CPU."""
+    if x.device.type == "cpu":
+        return quantize_activation(x, a_scale)
+    from egotap_tpu_torch.ops import int8_pack
+    return int8_pack.quantize(x, a_scale)
 
 
 def conv_nhwc_float(x: torch.Tensor, weight: torch.Tensor, stride: int,

@@ -29,7 +29,11 @@ the quantized ``kernel_q``), so a row-parallel module's per-output
 scale spans the whole contraction; its int32 partial products are
 summed exactly and dequantized once, which is the unsplit product. A
 dynamic per-tensor activation scale is the max over the model group (as
-GSPMD reduces JAX's global max); a static one is used as it is.
+GSPMD reduces JAX's global max); a static one is used as it is. On the
+card the split products run on kernel F as the unsplit ones do
+(`ops/int8_pack.py`): an input quantized once is one pack, a column part
+one product and one epilogue on its device, a row-parallel module one
+pack and one product on each device and one epilogue on the first.
 """
 
 from __future__ import annotations
@@ -44,9 +48,9 @@ from torch import nn
 from egotap_tpu_torch.models.layers import layer_norm
 from egotap_tpu_torch.models.vit import GridViT, ViTBlock, gelu
 from egotap_tpu_torch.ops.attention import multihead_attention_packed
-from egotap_tpu_torch.ops.quant import (QDense, dequantize, f32_scalar,
-                                        int8_matmul, quantize_activation,
-                                        QMAX)
+from egotap_tpu_torch.ops import int8_pack
+from egotap_tpu_torch.ops.quant import (QDense, f32_scalar, quantize_input,
+                                        quantized_dense, QMAX)
 
 # a ViTBlock's module names (the JAX names beside them)
 COLUMN = {"attention.attention.query": "query",
@@ -78,7 +82,8 @@ def split_dim(module: str, leaf: str, shape, num_model: int
 
 class _Part:
     """One device's shard of a linear module: its float weight and bias,
-    or its int8 weight and per-output scale."""
+    or its int8 weight and per-output scale (and, off the CPU, kernel F's
+    rows of the int8 weight)."""
 
     def __init__(self, mod: nn.Linear, dim: int, index: int, count: int,
                  device: torch.device):
@@ -91,11 +96,13 @@ class _Part:
                 device, copy=True, memory_format=torch.contiguous_format)
 
         self.device = device
-        self.w_q = self.w_scale = None
+        self.w_q = self.w_scale = self.w_rows = None
         if isinstance(mod, QDense):
             if mod.w_q is None:
                 mod.prequantize()
             self.w_q = cut(mod.w_q)
+            if device.type != "cpu":
+                self.w_rows = int8_pack.weight_rows(self.w_q)
             if dim == 0:
                 self.w_scale = cut(mod.w_scale)
             self.weight = None
@@ -135,7 +142,7 @@ class TensorParallelBlock(nn.Module):
                 mod.weight = nn.Parameter(mod.weight.new_empty(0),
                                           requires_grad=False)
                 if isinstance(mod, QDense):
-                    mod.w_q = mod.w_q.new_empty(0)
+                    mod.w_q = mod.w_rows = mod.w_q.new_empty(0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = self.block
@@ -158,16 +165,14 @@ class TensorParallelBlock(nn.Module):
         if part.w_q is None:
             bias = None if part.bias is None else part.bias.to(inp.dtype)
             return F.linear(inp, part.weight.to(inp.dtype), bias)
-        xq, a = inp
-        acc = int8_matmul(xq.reshape(-1, xq.shape[-1]), part.w_q)
-        out = dequantize(acc, a, part.w_scale, part.bias, y.dtype)
-        return out.reshape(*y.shape[:-1], -1)
+        return quantized_dense(y, part.w_q, part.w_scale, part.bias,
+                               pre_q=inp, w_rows=part.w_rows)
 
     def _row(self, name: str, xs: List[torch.Tensor]) -> torch.Tensor:
         """The row-parallel module ``name`` on the column shards ``xs``,
         summed onto devices[0]."""
         mod, parts, home = self.row[name], self.parts[name], self.devices[0]
-        lead, dtype = xs[0].shape[:-1], xs[0].dtype
+        dtype = xs[0].dtype
         if parts[0].w_q is None:
             total = sum(F.linear(x, p.weight.to(dtype)).to(home).float()
                         for x, p in zip(xs, parts))
@@ -179,11 +184,9 @@ class TensorParallelBlock(nn.Module):
             amax = torch.stack([x.float().abs().amax().to(home)
                                 for x in xs]).amax()
             a = torch.clamp_min(amax, 1e-12) / f32_scalar(amax, QMAX)
-        acc = sum(int8_matmul(quantize_activation(x, a.to(p.device))[0]
-                              .reshape(-1, x.shape[-1]), p.w_q).to(home)
-                  for x, p in zip(xs, parts))
-        return dequantize(acc, a, mod.w_scale, mod.bias, dtype).reshape(
-            *lead, -1)
+        return int8_pack.dense_sum(xs, a, [p.w_q for p in parts],
+                                   [p.w_rows for p in parts], mod.w_scale,
+                                   mod.bias)
 
     def _attend(self, y: torch.Tensor) -> torch.Tensor:
         b = self.block
@@ -201,7 +204,7 @@ class TensorParallelBlock(nn.Module):
         quantizer = None
         if isinstance(mlp_in, QDense):
             def quantizer(t):
-                return quantize_activation(t, mlp_in.a_scale)
+                return quantize_input(t, mlp_in.a_scale)
         inputs = self._inputs(y, quantizer)
         hs = [gelu(self._column("intermediate.dense", m, inp, y))
               for m, inp in enumerate(inputs)]

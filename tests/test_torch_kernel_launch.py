@@ -1,9 +1,12 @@
-"""What the kernel wrappers of kernels A to E check and pass on
+"""What the kernel wrappers of kernels A to F check and pass on
 before they launch, on the CPU: the libraries are replaced by a recorder
 and the tensors live on the ``meta`` device (no data, but not the CPU, so
 the wrappers take their kernel path), so no kernel runs. The kernels
 themselves are held to their plain versions on the card
 (`tests/test_torch_kernels_cuda.py`)."""
+
+import contextlib
+from unittest import mock
 
 import pytest
 import torch
@@ -14,9 +17,10 @@ from egotap_tpu_torch.models import resnet
 from egotap_tpu_torch.ops import attention as att
 from egotap_tpu_torch.ops import bn_act as E
 from egotap_tpu_torch.ops import fused_layer1 as fl
-from egotap_tpu_torch.ops import pu_kernel
+from egotap_tpu_torch.ops import int8_pack as F8
+from egotap_tpu_torch.ops import pu_kernel, quant
 from egotap_tpu_torch.ops import upsample as up
-from tests.test_torch_attention_launch import FakeLibrary
+from test_torch_attention_launch import FakeLibrary
 
 H100 = (132, 232448)             # SMs, shared memory a block may opt in to
 
@@ -52,6 +56,14 @@ class Recorder(FakeLibrary):
         self.calls.append(("bn_act", args))
         return 0
 
+    def egotap_int8_pack(self, *args):
+        self.calls.append(("int8_pack", args))
+        return 0
+
+    def egotap_int8_epilogue(self, *args):
+        self.calls.append(("int8_epilogue", args))
+        return 0
+
 
 @pytest.fixture
 def fake(monkeypatch):
@@ -64,6 +76,59 @@ def fake(monkeypatch):
 
 def _meta(*shape, dtype=torch.float32):
     return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@contextlib.contextmanager
+def recording():
+    """`fake` outside a test: while the block runs, every kernel library is
+    a `Recorder` (yielded) and the card an H100."""
+    lib = Recorder()
+    with mock.patch.object(_build, "library", lambda name: lib), \
+            mock.patch.object(_build, "stream_ptr", lambda tensor: 0), \
+            mock.patch.object(pu_kernel, "_card", lambda device: H100):
+        yield lib
+
+
+def _int8_nets(batch: int = 32, **overrides):
+    """The int8 serving nets of `serving_config(**overrides)` on the meta
+    device, in eval mode with static scales and their int8 weights, and
+    an rgb batch of ``batch`` for them."""
+    from egotap_tpu_torch.ops.quant import Calibrated, prequantize
+    from egotap_tpu_torch.serving import build_nets, serving_config
+    cfg = serving_config(**overrides)
+    with torch.device("meta"):
+        nets = build_nets(cfg, True, True)
+    for net in nets:
+        net.eval().requires_grad_(False)
+        for m in net.modules():
+            if isinstance(m, Calibrated):
+                m.a_scale = _meta()
+    prequantize(nets)
+    return nets, _meta(batch, cfg.views, 256, 256, 3)
+
+
+def int8_serving_products(batch: int = 32, **overrides) -> dict:
+    """The int8 products of one bf16 int8 serving forward of
+    `serving_config(**overrides)` at ``batch`` (static scales), as kernel
+    F launches them, read on the meta device: {(x's NHWC shape, kernel,
+    stride, padding, N): [products, packs]}, in the order of their first
+    launch. A product that takes a `QuantStub`'s codes packs nothing; the
+    stub's pack counts with the first product after it."""
+    from egotap_tpu_torch.serving import pose_forward
+    nets, rgb = _int8_nets(batch, **overrides)
+    with recording() as lib, torch.no_grad():
+        pose_forward(nets, rgb, torch.bfloat16)
+    products, packed, fresh = {}, None, False
+    for name, args in lib.calls:
+        if name == "int8_pack":
+            n, h, w, c, kernel, stride, padding = args[3:10]
+            packed, fresh = ((n, h, w, c), kernel, stride, padding), True
+        elif name == "int8_epilogue":
+            counts = products.setdefault(packed + (args[6],), [0, 0])
+            counts[0] += 1
+            counts[1] += fresh
+            fresh = False
+    return products
 
 
 def _pu_args(b=2, j=3, h=32, dtype=torch.bfloat16):
@@ -481,3 +546,247 @@ def test_eval_trunk_on_cpu_is_the_plain_sequence():
             resnet.conv_nhwc(x, block.downsample[0]), block.downsample[1])
         want = torch.relu(out + identity)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype,code", [(torch.float32, 0),
+                                        (torch.bfloat16, 1)])
+@pytest.mark.parametrize("shape,kernel,stride,padding,geometry", [
+    ((64, 64, 64, 64), 3, 1, 1, (64, 64, 262144, 576, 16, 56)),
+    ((64, 64, 64, 64), 1, 2, 0, (32, 32, 65536, 64, 16, 124)),
+    ((32, 16, 16, 1540), 3, 1, 1, (16, 16, 8192, 13864, 4, 1)),
+    ((1, 3, 3, 3), 3, 1, 1, (3, 3, 32, 32, 1, 1)),
+    ((1, 5, 7, 24), 3, 2, 0, (2, 3, 32, 216, 8, 1))])
+def test_int8_pack_launch_arguments(fake, dtype, code, shape, kernel, stride,
+                                    padding, geometry):
+    """Kernel F's pack gets x, the scale, the rows, then N, H, W, C, the
+    kernel, stride and padding, the output grid, the padded rows Mp (32
+    when M <= 16) and row length Kp (K up to a multiple of 8), the dtype
+    code, `pack_geometry`'s codes a chunk (the widest of 16, 8, 4, 1 that
+    C divides) and rows a block (about `TILE` chunks, fewer for a call of
+    fewer than `MIN_BLOCKS` such blocks); it returns (Mp, Kp) int8
+    rows."""
+    x = _meta(*shape, dtype=dtype)
+    before = F8.pack.launches
+    rows, hw = F8.pack(x, _meta(), kernel, stride, padding)
+    ((name, args),) = fake.calls
+    assert name == "int8_pack" and F8.pack.launches == before + 1
+    assert args[3:10] == (*shape, kernel, stride, padding)
+    assert args[10:17] == (*geometry[:4], code, *geometry[4:])
+    assert hw == geometry[:2] and rows.shape == geometry[2:4]
+    assert rows.dtype == torch.int8
+
+
+@pytest.mark.parametrize("dtype,code", [(torch.float32, 0),
+                                        (torch.bfloat16, 1)])
+@pytest.mark.parametrize("m,n,np_,geometry", [
+    (262144, 64, 64, (8, 256)), (131072, 30, 32, (2, 136)),
+    (8192, 516, 520, (4, 15)), (4, 3, 8, (1, 1))])
+@pytest.mark.parametrize("bias", [True, False])
+def test_int8_epilogue_launch_arguments(fake, dtype, code, m, n, np_,
+                                        geometry, bias):
+    """Kernel F's epilogue gets the padded int32 product, the scale, the
+    per-output scale, the bias (None without one), the output, M, N, the
+    product's row pitch Np, the dtype code and `epilogue_geometry`'s
+    outputs a chunk (the widest of 8, 4, 2, 1 that N divides) and rows a
+    block; it returns (M, N) in the dtype."""
+    acc = _meta(max(m, 32), np_, dtype=torch.int32)
+    out = F8.epilogue(acc, m, n, _meta(), _meta(n),
+                      _meta(n) if bias else None, dtype)
+    ((name, args),) = fake.calls
+    assert name == "int8_epilogue"
+    assert (args[3] is None) != bias
+    assert args[5:11] == (m, n, np_, code, *geometry)
+    assert out.shape == (m, n) and out.dtype == dtype
+
+
+def test_int8_pack_refusals_launch_nothing(fake):
+    """Off the CPU kernel F raises for what it does not cover, and runs no
+    plain sequence in its place: float16, a scale on another device or
+    not f32, x not NHWC, a kernel larger than the padded image, a product
+    not int32 or narrower than asked, a scale vector of another size."""
+    x, a = _meta(2, 4, 4, 64), _meta()
+    acc, w_scale = _meta(32, 64, dtype=torch.int32), _meta(64)
+    before = launch_counts()
+    cases = [(lambda: F8.pack(x.half(), a), "dtype"),
+             (lambda: F8.pack(x, torch.ones(())), "scale"),
+             (lambda: F8.pack(x, a.double()), "scale"),
+             (lambda: F8.pack(x[0], a), "NHWC"),
+             (lambda: F8.pack(x, a, 7, 1, 0), "kernel 7"),
+             (lambda: F8.epilogue(acc.long(), 32, 64, a, w_scale, None,
+                                  x.dtype), "product"),
+             (lambda: F8.epilogue(acc, 33, 64, a, w_scale, None, x.dtype),
+              "product"),
+             (lambda: F8.epilogue(acc, 32, 64, a, w_scale[:60], None,
+                                  x.dtype), "not f32"),
+             (lambda: F8.epilogue(acc, 32, 64, a, w_scale, None,
+                                  torch.float16), "dtype")]
+    for fn, match in cases:
+        with pytest.raises(NotImplementedError, match=match):
+            fn()
+    assert not fake.calls and launch_counts() == before
+
+
+def _plain_launches(monkeypatch):
+    """Kernel F's launches played by its plain twins (on CPU tensors)."""
+    monkeypatch.setattr(F8, "pack", F8.pack_plain)
+    monkeypatch.setattr(F8, "epilogue", F8.epilogue_plain)
+
+
+@pytest.mark.parametrize("form", ["conv", "conv_static", "dense",
+                                  "dense_pre_q"])
+def test_int8_backward_is_the_plain_sequences(monkeypatch, form):
+    """With a gradient asked for, kernel F's launches are the forward of
+    `_KernelF` (here played by the plain twins): the gradients of x, the
+    weight (through its scale, quantized anew as the training mode does)
+    and the bias are autograd's over the plain sequence, bit for bit, with
+    a dynamic or a static scale, and for codes made beforehand."""
+    _plain_launches(monkeypatch)
+    g = torch.Generator().manual_seed(len(form))
+    conv = form.startswith("conv")
+    x = torch.randn((2, 5, 5, 24) if conv else (3, 7, 24), generator=g,
+                    requires_grad=True)
+    weight = torch.randn((16, 24, 3, 3) if conv else (16, 24), generator=g,
+                         requires_grad=True)
+    bias = torch.randn(16, generator=g, requires_grad=True)
+    a_scale = torch.tensor(0.05) if form == "conv_static" else None
+    w_q, w_scale = quant.quantize_weights(weight)
+    if conv:
+        got = F8.conv(x, w_q, w_scale, 2, 1, bias, a_scale, None)
+        want = quant.conv_plain(x, w_q, w_scale, 2, 1, bias, a_scale)
+    else:
+        pre_q = quant.quantize_activation(x) if form == "dense_pre_q" \
+            else None
+        got = F8.dense(x, w_q, w_scale, bias, None, pre_q, None)
+        want = quant.dense_plain(x, w_q, w_scale, bias, None, pre_q)
+    assert type(got.grad_fn).__name__ == "_KernelFBackward"
+    assert torch.equal(got, want)
+    leaves = [x, weight, bias]
+    ct = torch.randn(got.shape, generator=g)
+    # the weight's scale is one graph for both: keep it for the second
+    for a, b in zip(torch.autograd.grad(got, leaves, ct, retain_graph=True,
+                                        allow_unused=True),
+                    torch.autograd.grad(want, leaves, ct, allow_unused=True)):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+def test_int8_codes_of_a_stub(fake):
+    """A `QuantStub` on the card is one pack launch with k = 1, its codes
+    in x's shape as `quantize_activation` gives them; the `QDense` after it
+    takes them as its rows (no pack) and launches one epilogue."""
+    stub, dense = quant.QuantStub(), quant.QDense(24, 16)
+    stub.a_scale = dense.a_scale = _meta()
+    dense = dense.to("meta").eval().requires_grad_(False)
+    dense.prequantize()
+    x = _meta(3, 7, 24, dtype=torch.bfloat16)
+    xq, a = stub(x)
+    assert xq.shape == x.shape and xq.dtype == torch.int8
+    out = dense(x, pre_q=(xq, a))
+    assert out.shape == (3, 7, 16) and out.dtype == torch.bfloat16
+    assert [name for name, _ in fake.calls] == ["int8_pack", "int8_epilogue"]
+    assert fake.calls[0][1][3:10] == (21, 1, 1, 24, 1, 1, 0)
+
+
+def test_int8_forward_launches(fake, monkeypatch):
+    """One r18 int8 serving forward (batch 32, static scales) on the card:
+    kernel F's epilogue once for each of its 78 int8 products, its pack
+    once for each quantized input (72: the Grid-ViT's q, k and v take one
+    `QuantStub`'s codes), the weights' rows laid out in the first forward
+    and none in the next."""
+    from egotap_tpu_torch.serving import pose_forward
+    nets, rgb = _int8_nets()
+    laid_out = []
+    rows = F8.weight_rows
+    monkeypatch.setattr(F8, "weight_rows",
+                        lambda wq: laid_out.append(wq) or rows(wq))
+    with torch.no_grad():
+        pose_forward(nets, rgb, torch.bfloat16)
+        first = len(laid_out)
+        launch_counts(reset=True)
+        pose = pose_forward(nets, rgb, torch.bfloat16)
+    counts = launch_counts()
+    assert pose.shape == (32, 16, 3)
+    assert (counts["int8_pack"], counts["int8_epilogue"]) == (72, 78)
+    assert first == 78 and len(laid_out) == first      # one a product
+    names = [name for name, _ in fake.calls]
+    assert names.count("int8_epilogue") == 2 * 78
+    assert counts["upsample"] == 6 and counts["bn_act"] == 2
+
+
+def test_int8_sharded_lifter_launches(fake, monkeypatch):
+    """The lifter's Grid-ViT split over two model shards
+    (`parallel/tp.py`) runs its int8 products on kernel F, as the unsplit
+    lifter does, and no step of the plain sequence: a block packs its
+    `QuantStub`'s input and its MLP's input once, each row-parallel
+    product's input once on each shard, and launches an epilogue for each
+    column part and one for each row-parallel sum; over the 3 blocks that
+    is 2 packs and 4 epilogues a block more than the unsplit 72 and 78."""
+    from egotap_tpu_torch.parallel.tp import shard_lifter
+    from egotap_tpu_torch.serving import pose_forward
+    nets, rgb = _int8_nets()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain sequence ran on the card")
+    with torch.no_grad():
+        lifter = shard_lifter(nets[2], [torch.device("meta")] * 2)
+        for name in ("quantize_activation", "im2col", "int8_matmul",
+                     "dequantize"):
+            monkeypatch.setattr(quant, name, refuse)
+        launch_counts(reset=True)
+        pose = pose_forward((*nets[:2], lifter), rgb, torch.bfloat16)
+    counts = launch_counts()
+    assert pose.shape == (32, 16, 3)
+    assert (counts["int8_pack"], counts["int8_epilogue"]) \
+        == (72 + 2 * 3, 78 + 4 * 3)
+    assert counts["attention"] == 2 * 3
+
+
+def test_int8_dense_sum_launches(fake):
+    """`int8_pack.dense_sum` off the CPU: a pack of (M, 1, 1, K_i) and a
+    product on each device, one epilogue of the (Mp, Np) int32 sum; on
+    the CPU the plain sequence, no launch."""
+    xs = [_meta(2, 9, 16, dtype=torch.bfloat16) for _ in range(2)]
+    w_qs = [_meta(12, 16, dtype=torch.int8) for _ in range(2)]
+    rows = [F8.weight_rows(w) for w in w_qs]
+    out = F8.dense_sum(xs, _meta(), w_qs, rows, _meta(12), _meta(12))
+    assert out.shape == (2, 9, 12) and out.dtype == torch.bfloat16
+    assert [name for name, _ in fake.calls] \
+        == ["int8_pack", "int8_pack", "int8_epilogue"]
+    assert fake.calls[0][1][3:10] == (18, 1, 1, 16, 1, 1, 0)
+    assert fake.calls[2][1][5:8] == (18, 12, 16)        # m, n, Np
+    g = torch.Generator().manual_seed(0)
+    xs = [torch.randn(2, 9, 16, generator=g) for _ in range(2)]
+    w_qs = [quant.quantize_weights(torch.randn(12, 16, generator=g))[0]
+            for _ in range(2)]
+    a, w_scale = torch.tensor(0.02), torch.rand(12, generator=g)
+    fake.calls.clear()
+    got = F8.dense_sum(xs, a, w_qs, [None, None], w_scale, None)
+    want = F8.dense_sum_plain(xs, a, w_qs, w_scale, None)
+    assert not fake.calls and torch.equal(got, want)
+
+
+def test_int8_serving_products():
+    """`int8_serving_products`, the list of shapes that the card tests and
+    `chip_smoke.py` hold kernel F to: the r18 forward's 78 products and 72
+    packs in 26 shapes, the Grid-ViT's at 18432 rows, the decoder's
+    concatenated inputs (C = 1540, 1280, 640)."""
+    products = int8_serving_products()
+    assert len(products) == 26
+    assert [sum(c[i] for c in products.values()) for i in (0, 1)] == [78, 72]
+    assert products[((18432, 1, 1, 1024), 1, 1, 0, 1024)] == [12, 6]
+    assert {key[0][-1] for key in products} >= {1540, 1280, 640}
+
+
+def test_int8_on_cpu_is_the_plain_sequence(fake):
+    """On the CPU the int8 modules take the plain sequence and launch
+    nothing."""
+    g = torch.Generator().manual_seed(0)
+    conv = quant.QConv(64, 8, 3, padding=1).eval()
+    conv.a_scale = torch.tensor(0.02)
+    x = torch.randn(2, 4, 4, 64, generator=g)
+    before = launch_counts()
+    with torch.no_grad():
+        got = conv(x)
+        want = quant.conv_plain(x, conv.w_q, conv.w_scale, 1, 1, conv.bias,
+                                conv.a_scale)
+    assert torch.equal(got, want)
+    assert not fake.calls and launch_counts() == before

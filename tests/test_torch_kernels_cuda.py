@@ -17,15 +17,17 @@ from egotap_tpu_torch.models.resnet import BasicBlock
 from egotap_tpu_torch.ops import attention as att
 from egotap_tpu_torch.ops import bn_act as E
 from egotap_tpu_torch.ops import fused_layer1 as fl
+from egotap_tpu_torch.ops import int8_pack as F8
 from egotap_tpu_torch.ops import (attention_launches_by_heads, kernel_errors,
                                   launch_counts)
-from egotap_tpu_torch.ops import pu_kernel
+from egotap_tpu_torch.ops import _build, pu_kernel, quant
 from egotap_tpu_torch.ops import upsample as up
 from egotap_tpu_torch.ops.quant import (f32_scalar, im2col, int8_matmul,
                                         quantized_conv)
 from egotap_tpu_torch.serving import init_weights
 from pu_chain_schedule import schedule_vjp
 from test_torch_attention_launch import _tf32
+from test_torch_kernel_launch import int8_serving_products
 
 pytestmark = pytest.mark.cuda
 
@@ -1079,4 +1081,327 @@ def test_bn_act_predictor_bit_for_bit(gen, monkeypatch, model,
     plain_pose, plain_stack, plain_launches = run()
     assert plain_launches == 0
     assert torch.equal(stack, plain_stack)
+    assert (pose == plain_pose).all()
+
+
+# ---- kernel F: the passes around an int8 product
+
+# every int8 product shape of the r18 int8 serving forward at batch 32,
+# as (x's NHWC shape, kernel, stride, padding, N), read from one forward
+# on the meta device: the trunk's BN-folded convs (3x3 and the 1x1
+# downsamples, strides 1 and 2), the decoder's (its concatenated inputs of
+# C = 1540, 1280 and 640, its 1x1 convs, the heads' N = 30 and 60), the
+# lifter's dense products on (M, 1, 1, K) (N = 516)
+INT8_PRODUCTS = list(int8_serving_products())
+# around the chunks: M <= 16 (rows padded to 32) and 17, C of 3, 12, 20
+# and 24 (chunks of 1, 4, 4 and 8 codes), K not a multiple of 8, odd
+# images and strides, N of 1, 3, 5, 6 and 17
+INT8_EDGES = [((1, 1, 1, 8), 1, 1, 0, 8), ((2, 3, 3, 3), 3, 1, 1, 5),
+              ((1, 4, 4, 12), 3, 2, 1, 6), ((3, 5, 7, 24), 3, 2, 1, 17),
+              ((2, 4, 4, 1540), 3, 1, 1, 60), ((5, 1, 1, 20), 1, 1, 0, 3),
+              ((17, 1, 1, 16), 1, 1, 0, 1), ((2, 9, 5, 64), 3, 2, 0, 8)]
+# a static scale whose f32 reciprocal is 0.75 of an f32 ulp too large: a
+# multiply by it turns the ties 6.5, 12.5 and 14.5 into 7, 13 and 15
+INT8_SCALE = 7.0
+
+
+def _int8_input(shape, dtype, gen):
+    """x at the scale `INT8_SCALE`: a third of it at exact ties (k + 0.5)
+    * 7 for |k + 0.5| < 18 (8 significant bits: exact in bf16, and x / 7
+    exact), a tenth past +-127 * 7, a fifth +-0 (a ReLU's zeros, which the
+    kernel keeps off the division), the rest N(0, 40^2)."""
+    kind = torch.rand(shape, generator=gen, device="cuda")
+    ties = (torch.randint(-18, 18, shape, generator=gen, device="cuda")
+            + 0.5) * INT8_SCALE
+    past = torch.sign(kind - 0.05) * 1000 * INT8_SCALE
+    noise = 40 * torch.randn(shape, generator=gen, device="cuda")
+    zeros = torch.sign(kind - 0.53) * 0.0
+    x = torch.where(kind < 0.33, ties, torch.where(
+        kind < 0.43, past, torch.where(kind < 0.63, zeros, noise)))
+    return x.to(dtype)
+
+
+def _int8_weights(n_out, c, kernel, gen):
+    """(w_q OIHW, or (out, in) for a dense product, its scale, a bias)."""
+    shape = (n_out, c, kernel, kernel) if kernel > 1 else (n_out, c)
+    w_q, w_scale = quant.quantize_weights(
+        torch.randn(shape, generator=gen, device="cuda"))
+    return w_q, w_scale, torch.randn(n_out, generator=gen, device="cuda")
+
+
+def _int8_pack_case(shape, kernel, stride, padding, n_out, dt, gen):
+    """F's pack rows, epilogue output and whole product (through
+    `quantized_conv` or `quantized_dense`, one launch of each entry
+    point) against the plain sequence's, bit for bit."""
+    x = _int8_input(shape, dt, gen)
+    a = f32_scalar(x, INT8_SCALE)
+    w_q, w_scale, bias = _int8_weights(n_out, shape[-1], kernel, gen)
+    rows, hw = F8.pack(x, a, kernel, stride, padding)
+    want_rows, want_hw = F8.pack_plain(x, a, kernel, stride, padding)
+    assert hw == want_hw and torch.equal(rows, want_rows)
+    m = shape[0] * hw[0] * hw[1]
+    acc = torch._int_mm(rows, F8.weight_rows(w_q).t())
+    got = F8.epilogue(acc, m, n_out, a, w_scale, bias, dt)
+    want = F8.epilogue_plain(acc, m, n_out, a, w_scale, bias, dt)
+    _close(got, want, F8.TOL[dt])
+    assert torch.equal(_bits(got), _bits(want))
+    before = launch_counts()
+    if kernel > 1 or shape[1:3] != (1, 1):
+        got = quant.quantized_conv(x, w_q.view(n_out, -1, kernel, kernel),
+                                   w_scale, stride, padding, bias, a)
+        want = quant.conv_plain(x, w_q.view(n_out, -1, kernel, kernel),
+                                w_scale, stride, padding, bias, a)
+    else:
+        x2 = x.view(shape[0], shape[-1])
+        got = quant.quantized_dense(x2, w_q, w_scale, bias, a)
+        want = quant.dense_plain(x2, w_q, w_scale, bias, a)
+    after = launch_counts()
+    assert [after[k] - before[k] for k in ("int8_pack", "int8_epilogue")] \
+        == [1, 1]
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,kernel,stride,padding,n_out",
+                         INT8_PRODUCTS)
+def test_int8_pack_matches_plain(gen, shape, kernel, stride, padding, n_out,
+                                 dtype):
+    """Kernel F at each product shape of the int8 serving forward: the
+    pack's rows, the epilogue's output and the whole product equal the
+    plain sequence's bit for bit (`int8_pack.TOL`)."""
+    with torch.no_grad():
+        _int8_pack_case(shape, kernel, stride, padding, n_out,
+                        getattr(torch, dtype), gen)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,kernel,stride,padding,n_out", INT8_EDGES)
+def test_int8_pack_edge_shapes(gen, shape, kernel, stride, padding, n_out,
+                               dtype):
+    with torch.no_grad():
+        _int8_pack_case(shape, kernel, stride, padding, n_out,
+                        getattr(torch, dtype), gen)
+
+
+def test_int8_pack_zero_input(gen):
+    """All-zero x: every code 0, the output the bias alone, as the plain
+    sequence gives it; the dynamic scale (1e-12 / 127) as well."""
+    x = torch.zeros(4, 6, 6, 64, device="cuda", dtype=torch.bfloat16)
+    w_q, w_scale, bias = _int8_weights(32, 64, 3, gen)
+    with torch.no_grad():
+        rows, _ = F8.pack(x, f32_scalar(x, 0.5), 3, 1, 1)
+        assert not rows.any()
+        for a in (None, f32_scalar(x, 0.5)):
+            got = quant.quantized_conv(x, w_q, w_scale, 1, 1, bias, a)
+            assert torch.equal(got, quant.conv_plain(x, w_q, w_scale, 1, 1,
+                                                     bias, a))
+        assert torch.equal(got[0, 0, 0], bias.to(x.dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_pack_controls_rejected(gen, dtype):
+    """Faults the bit-for-bit check must see. The pack at a decoder-like
+    call (C = 1540: K 13860, a tail of 4 codes; ties and values past 127
+    * scale): codes rounded half away from zero, the quotient as a
+    multiply by the reciprocal, the image border read as the edge instead
+    of zeros, a dirty K tail. The epilogue on 2^25 products (in bf16 a
+    one-ulp f32 change shows in about 2^-16 of the outputs): the
+    dequantise contracted into one FMA."""
+    dt = getattr(torch, dtype)
+    x = _int8_input((2, 6, 6, 1540), dt, gen)
+    a = f32_scalar(x, INT8_SCALE)
+    with torch.no_grad():
+        rows, _ = F8.pack(x, a, 3, 1, 1)
+        assert torch.equal(rows, F8.pack_plain(x, a, 3, 1, 1)[0])
+
+        def packed(q, pad=1, mode="constant"):
+            codes = q.clamp(-127, 127).to(torch.int8)
+            if mode == "replicate":
+                codes = torch.nn.functional.pad(
+                    codes.permute(0, 3, 1, 2).float(), (pad,) * 4,
+                    mode=mode).permute(0, 2, 3, 1).to(torch.int8)
+                pad = 0
+            return quant.im2col(codes, 3, 1, pad)[0]
+        q = x.float() / a
+        away = torch.sign(q) * torch.floor(q.abs() + 0.5)
+        tail = rows.clone()
+        tail[:, 13860:] = 1
+        faults = {"round half away": packed(away),
+                  "reciprocal": packed(torch.round(x.float()
+                                                   * (1 / a))),
+                  "border from the edge": packed(torch.round(q), 1,
+                                                 "replicate"),
+                  "dirty K tail": tail}
+        for name, fault in faults.items():
+            assert fault.shape == rows.shape, name
+            assert not torch.equal(rows, fault), name
+        acc = torch.randint(-2 ** 20, 2 ** 20, (65536, 512), generator=gen,
+                            device="cuda", dtype=torch.int32)
+        w_scale = torch.rand(512, generator=gen, device="cuda") / 127
+        bias = torch.randn(512, generator=gen, device="cuda")
+        got = F8.epilogue(acc, 65536, 512, a, w_scale, bias, dt)
+        assert torch.equal(got, F8.epilogue_plain(acc, 65536, 512, a,
+                                                  w_scale, bias, dt))
+        fma = (acc.double() * (a * w_scale).double()
+               + bias.double()).float().to(dt)
+        assert not torch.equal(got, fma), "contracted FMA"
+
+
+# kernel F's template instances: (dtype, codes a chunk) of the pack,
+# (dtype, outputs a chunk, bias) of the epilogue, as ptxas names them
+INT8_PACK_ENTRIES = (
+    [f"pack_kernelI{t}Li{v}E" for t in ("f", "13__nv_bfloat16")
+     for v in (16, 8, 4, 1)]
+    + [f"epilogue_kernelI{t}Li{v}ELb{b}E" for t in ("f", "13__nv_bfloat16")
+       for v in (8, 4, 2, 1) for b in (0, 1)])
+
+
+@pytest.mark.parametrize("entry", INT8_PACK_ENTRIES)
+def test_int8_pack_kernel_resources(gen, entry):
+    """No instance spills, and each keeps to 64 registers a thread: four
+    blocks of 256 threads an SM, enough loads in flight for the bytes."""
+    res = _build.ptxas_resources("int8_pack", entry)
+    assert res["spill_store_bytes"] == 0 and res["spill_load_bytes"] == 0
+    assert 0 < res["registers"] <= 64, res
+
+
+def test_int8_pack_refusals(gen):
+    """On the card F raises for float16 and float64, a scale that is not
+    one f32 on x's device, a product that is not int32 or narrower than
+    asked, and a scale vector of another size, and launches nothing; a
+    strided x, or one off the 16-byte grid, is copied and packs as the
+    plain sequence does."""
+    x = torch.randn(2, 4, 4, 64, generator=gen, device="cuda")
+    a = f32_scalar(x, 0.05)
+    acc = torch.zeros(32, 64, dtype=torch.int32, device="cuda")
+    w_scale = torch.ones(64, device="cuda")
+    before = launch_counts()
+    with torch.no_grad():
+        for fn, match in (
+                (lambda: F8.pack(x.half(), a), "dtype"),
+                (lambda: F8.pack(x.double(), a), "dtype"),
+                (lambda: F8.pack(x, a.cpu()), "scale"),
+                (lambda: F8.pack(x, a.double()), "scale"),
+                (lambda: F8.pack(x[0], a), "NHWC"),
+                (lambda: F8.pack(x, a, 7, 1, 0), "kernel 7"),
+                (lambda: F8.epilogue(acc.long(), 32, 64, a, w_scale, None,
+                                     x.dtype), "product"),
+                (lambda: F8.epilogue(acc, 33, 64, a, w_scale, None,
+                                     x.dtype), "product"),
+                (lambda: F8.epilogue(acc, 32, 64, a, w_scale[:60], None,
+                                     x.dtype), "not f32 \\(64,\\)"),
+                (lambda: F8.epilogue(acc, 32, 64, a, w_scale, None,
+                                     torch.float16), "dtype")):
+            with pytest.raises(NotImplementedError, match=match):
+                fn()
+        assert launch_counts() == before
+        strided = x.transpose(1, 2)
+        shifted = torch.randn(x.numel() + 1, generator=gen,
+                              device="cuda")[1:].view(x.shape)
+        for inp in (strided, shifted):
+            assert torch.equal(F8.pack(inp, a, 3, 1, 1)[0],
+                               F8.pack_plain(inp, a, 3, 1, 1)[0])
+
+
+def test_int8_pack_grad_through_the_kernel(gen):
+    """The int8 training mode's call (weights quantized anew, dynamic
+    scale, a bias) asks for gradients: F launches (the output equals the
+    plain sequence's) and the gradients of x, the weight and the bias
+    are autograd's over the plain sequence, bit for bit."""
+    x = torch.randn(4, 8, 8, 128, generator=gen, device="cuda",
+                    requires_grad=True)
+    weight = torch.randn(64, 128, 3, 3, generator=gen, device="cuda",
+                         requires_grad=True)
+    bias = torch.randn(64, generator=gen, device="cuda", requires_grad=True)
+    leaves = [x, weight, bias]
+    w_q, w_scale = quant.quantize_weights(weight)
+    before = launch_counts()["int8_epilogue"]
+    got = quant.quantized_conv(x, w_q, w_scale, 1, 1, bias)
+    assert launch_counts()["int8_epilogue"] == before + 1
+    assert type(got.grad_fn).__name__ == "_KernelFBackward"
+    want = quant.conv_plain(x, w_q, w_scale, 1, 1, bias)
+    assert torch.equal(got, want)
+    ct = torch.randn(got.shape, generator=gen, device="cuda")
+    # the weight's scale is one graph for both: keep it for the second
+    for g, w in zip(torch.autograd.grad(got, leaves, ct, retain_graph=True),
+                    torch.autograd.grad(want, leaves, ct)):
+        assert torch.equal(g, w)
+
+
+def plain_int8(monkeypatch):
+    """Put the plain sequence in kernel F's place on the card."""
+    monkeypatch.setattr(F8, "conv", lambda x, wq, w_scale, stride, padding,
+                        bias, a_scale, w_rows: quant.conv_plain(
+                            x, wq, w_scale, stride, padding, bias, a_scale))
+    monkeypatch.setattr(F8, "dense", lambda x, wq, w_scale, bias, a_scale,
+                        pre_q, w_rows: quant.dense_plain(
+                            x, wq, w_scale, bias, a_scale, pre_q))
+    monkeypatch.setattr(F8, "quantize", quant.quantize_activation)
+    monkeypatch.setattr(F8, "dense_sum", lambda xs, a_scale, w_qs, w_rows,
+                        w_scale, bias: F8.dense_sum_plain(
+                            xs, a_scale, w_qs, w_scale, bias))
+
+
+def test_int8_pack_predictor_bit_for_bit(gen, monkeypatch):
+    """The r18 int8 serving `Predictor` on the card, calibrated: the
+    heatmap stack and the pose with kernel F equal those of the same nets
+    with the plain sequence in its place, bit for bit; a request launches
+    F's pack 72 times and its epilogue 78 (once a product), the plain run
+    neither."""
+    from egotap_tpu_torch.serving import Predictor
+    pred = Predictor(bf16=True, int8=True, device="cuda", seed=0)
+    rgb = torch.randn(4, 2, 256, 256, 3, generator=gen, device="cuda")
+    pred.calibrate([rgb + 0.1 * torch.randn(rgb.shape, generator=gen,
+                                            device="cuda")
+                    for _ in range(2)])
+
+    def run():
+        before = launch_counts()
+        pose = pred(rgb)
+        after = launch_counts()
+        with torch.no_grad():
+            stack = pred._heatmap_stack(rgb)
+        return pose, stack, [after[k] - before[k]
+                             for k in ("int8_pack", "int8_epilogue")]
+    pose, stack, launches = run()
+    assert launches == [72, 78]
+    plain_int8(monkeypatch)
+    plain_pose, plain_stack, plain_launches = run()
+    assert plain_launches == [0, 0]
+    assert torch.equal(stack, plain_stack)
+    assert (pose == plain_pose).all()
+
+
+@pytest.mark.parametrize("calibrated", [True, False])
+def test_int8_pack_sharded_predictor_bit_for_bit(gen, monkeypatch,
+                                                 calibrated):
+    """The r18 int8 `Predictor` with its Grid-ViT split over two model
+    shards on the card (`parallel/tp.py`), with static scales and with
+    dynamic ones (each row-parallel product's the max over its shards):
+    the pose with kernel F equals that of the plain sequence in its place,
+    bit for bit; a calibrated request launches F's pack 78 times and its
+    epilogue 90 (`test_int8_sharded_lifter_launches`), the plain run
+    neither."""
+    from egotap_tpu_torch.serving import Predictor
+    pred = Predictor(bf16=True, int8=True, device="cuda", seed=0)
+    rgb = torch.randn(4, 2, 256, 256, 3, generator=gen, device="cuda")
+    if calibrated:
+        pred.calibrate([rgb + 0.1 * torch.randn(rgb.shape, generator=gen,
+                                                device="cuda")
+                        for _ in range(2)])
+    pred.shard(1, num_model=2, devices=[torch.device("cuda", 0)] * 2)
+
+    def run():
+        before = launch_counts()
+        pose = pred(rgb)
+        after = launch_counts()
+        return pose, [after[k] - before[k]
+                      for k in ("int8_pack", "int8_epilogue")]
+    pose, launches = run()
+    if calibrated:
+        assert launches == [78, 90]
+    assert min(launches) > 0
+    plain_int8(monkeypatch)
+    plain_pose, plain_launches = run()
+    assert plain_launches == [0, 0]
     assert (pose == plain_pose).all()
